@@ -1,0 +1,251 @@
+"""Coupled PDE <-> ray-tracing driver (port of ``coupled/driver.py``).
+
+- ``derive_dt`` / ``derive_nu``: CFL-tuned time step and hyperviscosity.
+- ``make_coupled_frame``: K flow steps, each an IF-AB3 flow step followed
+  by a fused RK4 ray substep through the (old, new) patch-table pair. The
+  frame carries the previous step's table as the old time level, so each
+  flow step builds one table.
+- ``make_flow_frame``: flow-only steps (spinup).
+- ``CoupledDriver``: the host loop around the frames, with spinup, the NaN
+  guard and CFL/walltime logging.
+
+Frames are Python loops that enqueue device work; the host waits on the
+device once per frame, in the NaN guard.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.steppers import Clock, zero_clock
+from ..models.base import Model, build_stepper
+from ..rays.packets import Packets
+from ..rays.patch import build_patch_table
+from ..rays.raytrace import (RayParams, check_patch_path, fields_from_psih,
+                             make_pair_table, raytrace_tables)
+from ..rays.resample import k_cutoff_reset
+
+__all__ = [
+    "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
+    "make_flow_frame", "CoupledDriver",
+]
+
+
+def derive_dt(cfltune: float, umax: float, dx: float) -> float:
+    """dt = cfltune / umax * dx."""
+    return cfltune / umax * dx
+
+
+def derive_nu(nutune: float, nx: int, nnu: int, dt: float) -> float:
+    """nu = nutune * (2 pi / nx) / kmax^{2 nnu} / dt with kmax = nx/2 - 1."""
+    kmax = nx / 2 - 1
+    return nutune * 2.0 * np.pi / nx / (kmax ** (2 * nnu)) / dt
+
+
+class SimState(NamedTuple):
+    """Full coupled simulation state. ``bd`` (birth/death) is always None
+    until that resampling is ported (ROADMAP queue 1, item 16)."""
+
+    sol: torch.Tensor
+    clock: Clock
+    stepper_state: tuple | NamedTuple
+    packets: Packets
+    fields: torch.Tensor   # (5, ny, nx) current interpolation fields
+    bd: None = None
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to juliaraytracingsw_tpu_torch yet "
+        f"(ROADMAP queue 1, {item})")
+
+
+def make_coupled_frame(
+    model: Model,
+    step_fn: Callable,
+    psih_fn: Callable,
+    rp: RayParams,
+    flow_steps: int,
+    ray_substeps: int = 1,
+    ray_method: str = "rk4",
+    k_cutoff: float | None = None,
+    k0: float | None = None,
+    frozen_flow: bool = False,
+    dt: float | None = None,
+):
+    """``frame(sim) -> sim``: ``flow_steps`` interleaved flow/ray steps.
+
+    ``psih_fn(sol) -> psih`` extracts the advecting streamfunction. With
+    ``frozen_flow`` only the clock advances (by ``dt``) and the packets
+    trace the fixed fields."""
+    if ray_method != "rk4":
+        raise _not_ported(f"ray_method={ray_method!r}", "item 15")
+    check_patch_path(rp)
+    if frozen_flow and dt is None:
+        raise ValueError("frozen_flow=True needs dt")
+    grid = model.grid
+    ny, nx = grid.ny, grid.nx
+
+    def frame(sim: SimState) -> SimState:
+        sol, clock, sstate, packets = sim.sol, sim.clock, sim.stepper_state, sim.packets
+        fields = sim.fields
+        T_old = build_patch_table(fields, rp.interp)
+        for _ in range(flow_steps):
+            t0 = clock.t
+            if frozen_flow:
+                clock = Clock(clock.t + dt, clock.step + 1)
+                T_new = T_old
+            else:
+                sol, clock, sstate = step_fn(sol, clock, sstate)
+                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+                T_new = build_patch_table(fields, rp.interp)
+            T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
+            packets = raytrace_tables(packets, T_pair, t0, clock.t, rp, ny, nx,
+                                      nsubsteps=ray_substeps, method=ray_method)
+            if k_cutoff is not None:
+                packets = k_cutoff_reset(packets, k_cutoff, k0)
+            T_old = T_new
+        return SimState(sol, clock, sstate, packets, fields, None)
+
+    return frame
+
+
+def make_flow_frame(model: Model, step_fn, psih_fn, rp: RayParams, flow_steps: int):
+    """``frame(sim) -> sim``: flow-only steps, then refresh the fields."""
+    grid = model.grid
+
+    def frame(sim: SimState) -> SimState:
+        sol, clock, sstate = sim.sol, sim.clock, sim.stepper_state
+        for _ in range(flow_steps):
+            sol, clock, sstate = step_fn(sol, clock, sstate)
+        fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+        return SimState(sol, clock, sstate, sim.packets, fields, sim.bd)
+
+    return frame
+
+
+@dataclass
+class CoupledDriver:
+    """Host-side experiment orchestration::
+
+        drv = CoupledDriver(model, psih_fn, rp, dt=dt, stepper="IFMAB3", ...)
+        drv.init(sol0, packets)
+        drv.spinup(n_spinup_steps)
+        drv.run(n_frames, flow_steps_per_frame)
+
+    Options whose code is not ported yet raise NotImplementedError naming
+    the ROADMAP item: a ray_method other than 'rk4', remat, birth/death,
+    the writers, diagnostics and the live dashboard.
+    """
+
+    model: Model
+    psih_fn: Callable
+    rp: RayParams
+    dt: float
+    stepper: str = "IFMAB3"
+    use_filter: bool = False
+    filter_kwargs: dict | None = None
+    ray_substeps: int = 1
+    ray_method: str = "rk4"
+    k_cutoff: float | None = None
+    k0: float | None = None
+    frozen_flow: bool = False
+    remat: bool = False
+    birth_death: bool = False
+    snapshot_writer: object | None = None
+    packet_writer: object | None = None
+    diagnostics: dict | None = None
+    log_every_frames: int = 1
+    log_fn: Callable = print
+    live: object | None = None
+
+    def __post_init__(self):
+        if self.ray_method != "rk4":
+            raise _not_ported(f"ray_method={self.ray_method!r}", "item 15")
+        if self.remat:
+            raise _not_ported("remat", "item 14")
+        if self.birth_death:
+            raise _not_ported("birth/death resampling", "item 16")
+        if self.snapshot_writer is not None or self.packet_writer is not None:
+            raise _not_ported("snapshot/packet writers", "item 21")
+        if self.diagnostics:
+            raise _not_ported("diagnostics", "item 11")
+        if self.live is not None:
+            raise _not_ported("the live dashboard", "item 23")
+        check_patch_path(self.rp)
+        self._init_fn, self._step_fn = build_stepper(
+            self.model, self.stepper, self.dt, self.use_filter,
+            self.filter_kwargs,
+        )
+        self.sim: SimState | None = None
+        self._frame_cache: dict = {}
+        self._start_wall = time.time()
+
+    # --- lifecycle -----------------------------------------------------------
+    def init(self, sol0: torch.Tensor, packets: Packets, clock: Clock | None = None):
+        grid = self.model.grid
+        fields = fields_from_psih(self.psih_fn(sol0), grid, self.rp.interp)
+        self.sim = SimState(
+            sol=sol0,
+            clock=clock if clock is not None else zero_clock(device=sol0.device),
+            stepper_state=self._init_fn(sol0),
+            packets=packets,
+            fields=fields,
+        )
+        return self.sim
+
+    def _get_frame(self, kind: str, flow_steps: int):
+        key = (kind, flow_steps)
+        if key not in self._frame_cache:
+            if kind == "coupled":
+                self._frame_cache[key] = make_coupled_frame(
+                    self.model, self._step_fn, self.psih_fn, self.rp,
+                    flow_steps, self.ray_substeps, self.ray_method,
+                    self.k_cutoff, self.k0, self.frozen_flow, self.dt,
+                )
+            else:
+                self._frame_cache[key] = make_flow_frame(
+                    self.model, self._step_fn, self.psih_fn, self.rp, flow_steps
+                )
+        return self._frame_cache[key]
+
+    # --- phases --------------------------------------------------------------
+    def spinup(self, nsteps: int, chunk: int = 500):
+        """Flow-only spinup in chunks with NaN checks between."""
+        done = 0
+        while done < nsteps:
+            k = min(chunk, nsteps - done)
+            self.sim = self._get_frame("flow", k)(self.sim)
+            done += k
+            self._check_nan("spinup")
+        return self.sim
+
+    def run(self, n_frames: int, flow_steps_per_frame: int):
+        """Main coupled loop: n_frames x (flow steps interleaved with rays)."""
+        frame = self._get_frame("coupled", flow_steps_per_frame)
+        for i in range(n_frames):
+            self.sim = frame(self.sim)
+            self._check_nan(f"frame {i}")
+            if i % self.log_every_frames == 0:
+                self._log(i)
+        return self.sim
+
+    # --- helpers -------------------------------------------------------------
+    def _check_nan(self, where: str):
+        if not bool(torch.isfinite(self.sim.sol.abs().max())):
+            raise FloatingPointError(
+                f"solution is NaN/Inf at {where} "
+                f"(t={float(self.sim.clock.t):.3f}) — aborting")
+
+    def _log(self, i: int):
+        sim = self.sim
+        umax = float(sim.fields[:2].abs().max())
+        cfl = self.dt * umax / min(self.model.grid.dx, self.model.grid.dy)
+        self.log_fn(
+            f"step: {sim.clock.step:06d}, t: {float(sim.clock.t):.2f}, "
+            f"cfl: {cfl:.2e}, wall: {(time.time() - self._start_wall) / 60:.2f} min"
+        )

@@ -1,0 +1,73 @@
+"""Initial-condition generators (port of ``coupled/initial_conditions.py``).
+
+The random spectra are built in numpy from an explicit ``Generator``, with
+the reference's code, so the same seed gives the same spectrum bit for bit
+before the final conversion to the grid's device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.spectral import enforce_reality, rfft2
+
+__all__ = ["random_band_psih", "band_geo_wave_ic"]
+
+
+def _grid_np(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().astype(np.float64)
+
+
+def random_band_psih(grid, rng, kband=(2, 6), amp=0.1):
+    """Band-limited random streamfunction spectrum, normalised so the max
+    physical |psi| equals amp."""
+    K = np.sqrt(grid.Krsq.cpu().numpy())
+    mask = (K >= kband[0]) & (K <= kband[1])
+    psih = mask * np.exp(1j * rng.uniform(0, 2 * np.pi, K.shape))
+    psi = np.fft.irfft2(psih, s=(grid.ny, grid.nx))
+    psi *= amp / max(np.abs(psi).max(), 1e-30)
+    return rfft2(torch.as_tensor(psi.astype(np.float32), device=grid.device))
+
+
+def band_geo_wave_ic(grid, rng, Kg=(10, 13), Kw=(0, 5), ag=1.5, aw=0.1,
+                     f=3.0, Cg=1.0):
+    """Geostrophic + wave random RSW state ``(3, nl, nkr)`` complex64.
+
+    Geo part: balanced fields from band-limited random phases with 1/omega
+    amplitude, normalised so the max geostrophic speed is ``ag``. Wave part:
+    linear-wave eigenstructure with random per-mode +/- branch signs,
+    normalised so the max wave speed is ``aw``."""
+    Cg2 = Cg * Cg
+    kr = _grid_np(grid.kr)[None, :]
+    ell = _grid_np(grid.l)[:, None]
+    Krsq = _grid_np(grid.Krsq)
+    invK = _grid_np(grid.invKrsq)
+    om = np.sqrt(f * f + Cg2 * Krsq)
+
+    geo_mask = (Krsq >= Kg[0] ** 2) & (Krsq <= Kg[1] ** 2) & (Krsq > 0)
+    wave_mask = (Krsq >= Kw[0] ** 2) & (Krsq <= Kw[1] ** 2) & (Krsq > 0)
+    shift = np.exp(2j * np.pi * rng.random(Krsq.shape))
+    sgn = np.sign(rng.random(Krsq.shape) - 0.5)
+
+    def normalise(uh, vh, hh, target):
+        u = np.fft.irfft2(uh, s=(grid.ny, grid.nx))
+        v = np.fft.irfft2(vh, s=(grid.ny, grid.nx))
+        umax = np.sqrt(u**2 + v**2).max()
+        s = target / max(umax, 1e-30)
+        return uh * s, vh * s, hh * s
+
+    geo_amp = 1.0 / om
+    etagh = np.where(geo_mask, geo_amp * f * shift, 0.0)
+    ugh = np.where(geo_mask, -geo_amp * 1j * Cg2 * ell * shift, 0.0)
+    vgh = np.where(geo_mask, geo_amp * 1j * Cg2 * kr * shift, 0.0)
+    ugh, vgh, etagh = normalise(ugh, vgh, etagh, ag)
+
+    wave_amp = np.sqrt(invK) / (2.0 * om)
+    etawh = np.where(wave_mask, wave_amp * Krsq * shift, 0.0)
+    uwh = np.where(wave_mask, wave_amp * (sgn * kr * om * shift + 1j * f * ell * shift), 0.0)
+    vwh = np.where(wave_mask, wave_amp * (sgn * ell * om * shift - 1j * f * kr * shift), 0.0)
+    uwh, vwh, etawh = normalise(uwh, vwh, etawh, aw)
+
+    sol = np.stack([ugh + uwh, vgh + vwh, etagh + etawh]).astype(np.complex64)
+    # purge conjugate-symmetry violations of the random phases
+    return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)

@@ -1,0 +1,64 @@
+"""Model container and the stepper registry (port of ``models/base.py``).
+
+A model is a plain container of functions and tensors: ``L`` (per-mode
+linear operator, diagonal or ``(C, C, nl, nkr)`` blocks), ``calcN`` (the
+nonlinear pseudo-spectral right-hand side ``(sol, t) -> N``) and extras.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable
+
+import torch
+
+from ..core import steppers as _steppers
+from ..core.filters import make_filter
+from ..core.steppers import Clock
+
+__all__ = ["Model", "build_stepper", "run", "STEPPERS"]
+
+
+@dataclass(frozen=True)
+class Model:
+    """A spectral PDE model on a 2-D periodic grid."""
+
+    name: str
+    grid: Any
+    params: Any
+    L: torch.Tensor
+    calcN: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    nfields: int
+    extras: dict = field(default_factory=dict)
+
+
+# the reference's ETDAB3 is the same scheme as IFMAB3; the other steppers
+# of the JAX registry are not ported yet (ROADMAP queue 1, item 18)
+STEPPERS = {
+    "IFMAB3": _steppers.make_ifab3,
+    "ETDAB3": _steppers.make_ifab3,
+}
+
+
+def build_stepper(
+    model: Model,
+    stepper: str = "IFMAB3",
+    dt: float = 5e-2,
+    use_filter: bool = False,
+    filter_kwargs: dict | None = None,
+):
+    """Return ``(init_fn, step_fn)`` for the named stepper on this model."""
+    try:
+        factory = STEPPERS[stepper]
+    except KeyError:
+        raise ValueError(
+            f"unknown stepper {stepper!r}; available: {sorted(STEPPERS)}"
+        ) from None
+    filt = make_filter(model.grid, **(filter_kwargs or {})) if use_filter else None
+    return factory(model.L, model.calcN, dt, filt)
+
+
+def run(step_fn, sol, clock: Clock, state, nsteps: int):
+    """Advance ``nsteps`` steps in a Python loop."""
+    for _ in range(nsteps):
+        sol, clock, state = step_fn(sol, clock, state)
+    return sol, clock, state
