@@ -2,9 +2,12 @@
 
 - ``derive_dt`` / ``derive_nu``: CFL-tuned time step and hyperviscosity.
 - ``make_coupled_frame``: K flow steps, each an IF-AB3 flow step followed
-  by a fused RK4 ray substep through the (old, new) patch-table pair. The
-  frame carries the previous step's table as the old time level, so each
-  flow step builds one table.
+  by a ray step from the old to the new snapshot: fixed RK4 or DP5
+  substeps through the (old, new) patch-table pair (the frame carries the
+  previous step's table as the old time level, so each flow step builds
+  one table) or through the taps path, or the adaptive integrator
+  (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg 7(8)),
+  which builds its own pair table from the two snapshots.
 - ``make_flow_frame``: flow-only steps (spinup).
 - ``CoupledDriver``: the host loop around the frames, with spinup, the NaN
   guard and CFL/walltime logging.
@@ -25,14 +28,18 @@ from ..core.steppers import Clock, zero_clock
 from ..models.base import Model, build_stepper
 from ..rays.packets import Packets
 from ..rays.patch import build_patch_table
-from ..rays.raytrace import (RayParams, check_patch_path, fields_from_psih,
-                             make_pair_table, raytrace_tables)
+from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_from_psih,
+                             make_pair_table, raytrace, raytrace_adaptive,
+                             raytrace_tables)
 from ..rays.resample import k_cutoff_reset
 
 __all__ = [
     "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
-    "make_flow_frame", "CoupledDriver",
+    "make_flow_frame", "CoupledDriver", "RAY_METHODS",
 ]
+
+# fixed-step integrators, then the adaptive ones ('midpoint' is not ported)
+RAY_METHODS = ("rk4", "dopri5", "adaptive", "adaptive7")
 
 
 def derive_dt(cfltune: float, umax: float, dx: float) -> float:
@@ -64,6 +71,13 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP queue 1, {item})")
 
 
+def _check_ray_method(ray_method: str) -> None:
+    if ray_method == "midpoint":
+        raise _not_ported("ray_method='midpoint'", "item 15")
+    if ray_method not in RAY_METHODS:
+        raise ValueError(f"unknown ray_method {ray_method!r}; available: {RAY_METHODS}")
+
+
 def make_coupled_frame(
     model: Model,
     step_fn: Callable,
@@ -76,36 +90,55 @@ def make_coupled_frame(
     k0: float | None = None,
     frozen_flow: bool = False,
     dt: float | None = None,
+    ray_opts: dict | None = None,
+    ray_info_fn: Callable | None = None,
 ):
     """``frame(sim) -> sim``: ``flow_steps`` interleaved flow/ray steps.
 
     ``psih_fn(sol) -> psih`` extracts the advecting streamfunction. With
     ``frozen_flow`` only the clock advances (by ``dt``) and the packets
-    trace the fixed fields."""
-    if ray_method != "rk4":
-        raise _not_ported(f"ray_method={ray_method!r}", "item 15")
-    check_patch_path(rp)
+    trace the fixed fields. ``ray_opts`` go to ``raytrace_adaptive`` for the
+    adaptive methods (rtol, atol, max_steps, init_substeps, loop, pair);
+    ``ray_info_fn``, if given, is called with the info dict of each flow
+    step's adaptive integration."""
+    _check_ray_method(ray_method)
+    check_ray_params(rp)
     if frozen_flow and dt is None:
         raise ValueError("frozen_flow=True needs dt")
     grid = model.grid
     ny, nx = grid.ny, grid.nx
+    adaptive = ray_method in ("adaptive", "adaptive7")
+    # the adaptive integrator builds its own pair table from the fields
+    use_patch = _use_patch(rp) and not adaptive
+    ray_opts = dict(ray_opts or {})
+    if adaptive:
+        ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
 
     def frame(sim: SimState) -> SimState:
         sol, clock, sstate, packets = sim.sol, sim.clock, sim.stepper_state, sim.packets
         fields = sim.fields
-        T_old = build_patch_table(fields, rp.interp)
+        T_old = build_patch_table(fields, rp.interp) if use_patch else None
         for _ in range(flow_steps):
-            t0 = clock.t
+            t0, fields_old = clock.t, fields
             if frozen_flow:
                 clock = Clock(clock.t + dt, clock.step + 1)
                 T_new = T_old
             else:
                 sol, clock, sstate = step_fn(sol, clock, sstate)
                 fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
-                T_new = build_patch_table(fields, rp.interp)
-            T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
-            packets = raytrace_tables(packets, T_pair, t0, clock.t, rp, ny, nx,
-                                      nsubsteps=ray_substeps, method=ray_method)
+                T_new = build_patch_table(fields, rp.interp) if use_patch else None
+            if adaptive:
+                packets, info = raytrace_adaptive(packets, fields_old, fields, t0,
+                                                  clock.t, rp, **ray_opts)
+                if ray_info_fn is not None:
+                    ray_info_fn(info)
+            elif use_patch:
+                T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
+                packets = raytrace_tables(packets, T_pair, t0, clock.t, rp, ny, nx,
+                                          nsubsteps=ray_substeps, method=ray_method)
+            else:
+                packets = raytrace(packets, fields_old, fields, t0, clock.t, rp,
+                                   nsubsteps=ray_substeps, method=ray_method)
             if k_cutoff is not None:
                 packets = k_cutoff_reset(packets, k_cutoff, k0)
             T_old = T_new
@@ -137,9 +170,13 @@ class CoupledDriver:
         drv.spinup(n_spinup_steps)
         drv.run(n_frames, flow_steps_per_frame)
 
+    After ``run``, ``ray_infos`` holds the info dicts of its flow steps'
+    adaptive integrations (``raytrace_adaptive``), in order; it stays empty
+    for the fixed-step ray methods.
+
     Options whose code is not ported yet raise NotImplementedError naming
-    the ROADMAP item: a ray_method other than 'rk4', remat, birth/death,
-    the writers, diagnostics and the live dashboard.
+    the ROADMAP item: ray_method='midpoint', remat, birth/death, the
+    writers, diagnostics and the live dashboard.
     """
 
     model: Model
@@ -150,7 +187,8 @@ class CoupledDriver:
     use_filter: bool = False
     filter_kwargs: dict | None = None
     ray_substeps: int = 1
-    ray_method: str = "rk4"
+    ray_method: str = "rk4"        # one of RAY_METHODS
+    ray_opts: dict | None = None   # adaptive: rtol/atol/max_steps/...
     k_cutoff: float | None = None
     k0: float | None = None
     frozen_flow: bool = False
@@ -164,8 +202,7 @@ class CoupledDriver:
     live: object | None = None
 
     def __post_init__(self):
-        if self.ray_method != "rk4":
-            raise _not_ported(f"ray_method={self.ray_method!r}", "item 15")
+        _check_ray_method(self.ray_method)
         if self.remat:
             raise _not_ported("remat", "item 14")
         if self.birth_death:
@@ -176,12 +213,13 @@ class CoupledDriver:
             raise _not_ported("diagnostics", "item 11")
         if self.live is not None:
             raise _not_ported("the live dashboard", "item 23")
-        check_patch_path(self.rp)
+        check_ray_params(self.rp)
         self._init_fn, self._step_fn = build_stepper(
             self.model, self.stepper, self.dt, self.use_filter,
             self.filter_kwargs,
         )
         self.sim: SimState | None = None
+        self.ray_infos: list[dict] = []
         self._frame_cache: dict = {}
         self._start_wall = time.time()
 
@@ -206,6 +244,7 @@ class CoupledDriver:
                     self.model, self._step_fn, self.psih_fn, self.rp,
                     flow_steps, self.ray_substeps, self.ray_method,
                     self.k_cutoff, self.k0, self.frozen_flow, self.dt,
+                    self.ray_opts, self.ray_infos.append,
                 )
             else:
                 self._frame_cache[key] = make_flow_frame(
@@ -227,6 +266,7 @@ class CoupledDriver:
     def run(self, n_frames: int, flow_steps_per_frame: int):
         """Main coupled loop: n_frames x (flow steps interleaved with rays)."""
         frame = self._get_frame("coupled", flow_steps_per_frame)
+        self.ray_infos.clear()
         for i in range(n_frames):
             self.sim = frame(self.sim)
             self._check_nan(f"frame {i}")

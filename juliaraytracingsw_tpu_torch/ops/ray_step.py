@@ -1,16 +1,27 @@
-"""Fused RK4 ray substep over gathered patch rows (port of
+"""Fused ray kernels over gathered patch rows (port of
 ``ops/pallas_ray_step.py``).
 
-``fused_substep`` is the wrapper of the hand-written CUDA kernel
-``csrc/ray_step.cu``, which replaces the reference's Pallas TPU kernel
-(``_kernel`` built by ``make_fused_substep``). ``substep_torch`` is its
-plain PyTorch twin, a line-for-line copy of the reference's
-``_substep_math``/``substep_jnp``: the wrapper runs it for tensors on the
-CPU, and the tests and ``chip_smoke.py`` hold the kernel against it.
+Two hand-written CUDA kernels replace the reference's two Pallas TPU
+kernels, each beside its plain PyTorch twin, a line-for-line copy of the
+reference's jnp twin:
 
-Contract (the reference's): ``rows_T (2W, N)`` f32 gathered (old|new) patch
-rows, ``st (7, N)`` f32 = [x y k l sign bx by], ``scal (2,)`` f32 = [a0, h]
--> ``(4, N)`` f32 = [x' y' k' l'].
+- ``fused_substep`` launches ``csrc/ray_step.cu`` (the reference's
+  ``_kernel`` built by ``make_fused_substep``): one RK4 substep. Twin:
+  ``substep_torch`` (``_substep_math``/``substep_jnp``).
+- ``fused_attempt`` launches ``csrc/ray_attempt.cu`` (``_attempt_kernel``
+  built by ``make_fused_attempt``): one embedded Dormand-Prince 5(4)
+  attempt of the adaptive path. Twin: ``attempt_torch``
+  (``_attempt_math``/``attempt_jnp``).
+
+A wrapper runs the twin for tensors on the CPU and the kernel for tensors
+on the card; the tests and ``chip_smoke.py`` hold each kernel against its
+twin.
+
+Contracts (the reference's): ``rows_T (2W, N)`` f32 gathered (old|new)
+patch rows, ``st (7, N)`` f32 = [x y k l sign bx by]; the substep takes
+``scal (2,)`` = [a0, h] and gives ``(4, N)`` = [x' y' k' l']; the attempt
+takes ``scal (5,)`` = [a0, dah, h, rtol, atol] and gives ``(5, N)`` =
+[x5 y5 k5 l5 esum], esum the packet's sum of squared scaled errors.
 """
 from __future__ import annotations
 
@@ -20,8 +31,9 @@ import torch
 
 from ..rays.patch import PATCH_SHAPES
 
-__all__ = ["RK4_STAGES", "RK4_B", "fused_substep", "launches", "n_channels",
-           "reset_launches", "substep_torch"]
+__all__ = ["RK4_STAGES", "RK4_B", "attempt_launches", "attempt_torch",
+           "fused_attempt", "fused_substep", "launches", "n_channels",
+           "reset_launches", "substep_cfg", "substep_torch"]
 
 RK4_STAGES = ((0.0, ()), (0.5, (0.5,)), (0.5, (0.0, 0.5)),
               (1.0, (0.0, 0.0, 1.0)))
@@ -29,14 +41,17 @@ RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
 
 _INTERP_ID = {"bilinear": 0, "bspline": 1, "bicubic": 2}
 
-# kernel launches per interp, counted by fused_substep where it launches
-# the CUDA kernel and nowhere else (the CPU twin path does not count)
+# kernel launches per interp, counted by fused_substep (launches) and
+# fused_attempt (attempt_launches) where they launch their CUDA kernel and
+# nowhere else (the CPU twin path does not count)
 launches = {name: 0 for name in _INTERP_ID}
+attempt_launches = {name: 0 for name in _INTERP_ID}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, attempt_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def n_channels(interp: str) -> int:
@@ -203,15 +218,87 @@ def substep_torch(rows_T, st, scal, *, cfg, interp, da, x0, y0):
     return torch.stack([nx_ + shx, ny_ + shy, nk_, nl_])
 
 
+def _attempt_math(read_tap, x, y, kk, ll, sgn, a0, dah, h, rtol, atol, cfg,
+                  interp):
+    """One embedded Dormand-Prince 5(4) attempt in patch-local coordinates:
+    the 5th-order solution and the per-packet sum of squared scaled
+    component errors, scaled by the patch-local positions."""
+    from ..rays.raytrace import _DP_A, _DP_B, _DP_B4, _DP_C
+
+    ph, pw, lo, W, dxg, dyg, f, Cg = cfg
+    sample = _make_sample(read_tap, cfg, interp)
+
+    def rhs(qx, qy, qk, ql, a):
+        u, v, ux, uy, vx = sample(qx, qy, a)
+        om = sgn * torch.sqrt(f * f + Cg * Cg * (qk * qk + ql * ql))
+        cg = (Cg * Cg) / om
+        return (u + cg * qk, v + cg * ql,
+                -(ux * qk + vx * ql), -(uy * qk - ux * ql))
+
+    ks = []
+    for ci, aij in zip(_DP_C, _DP_A):
+        qx, qy, qk, ql = x, y, kk, ll
+        for kprev, aa in zip(ks, aij):
+            if aa:
+                qx = qx + h * aa * kprev[0]
+                qy = qy + h * aa * kprev[1]
+                qk = qk + h * aa * kprev[2]
+                ql = ql + h * aa * kprev[3]
+        ks.append(rhs(qx, qy, qk, ql, a0 + ci * dah))
+
+    def lincomb(base, ws):
+        acc = [None] * 4
+        for kv, w in zip(ks, ws):
+            if w == 0.0:
+                continue
+            for i in range(4):
+                acc[i] = kv[i] * w if acc[i] is None else acc[i] + kv[i] * w
+        return [b + h * a for b, a in zip(base, acc)]
+
+    x5, y5, k5, l5 = lincomb((x, y, kk, ll), _DP_B)
+    be = tuple(b - b4 for b, b4 in zip(_DP_B, _DP_B4))
+    ex, ey, ek, el = lincomb((torch.zeros_like(x),) * 4, be)
+
+    def comp(e, y_new, y_old):
+        sc = atol + rtol * torch.maximum(torch.abs(y_old), torch.abs(y_new))
+        r = e / sc
+        return r * r
+
+    esum = (comp(ex, x5, x) + comp(ey, y5, y)
+            + comp(ek, k5, kk) + comp(el, l5, ll))
+    return x5, y5, k5, l5, esum
+
+
+def attempt_torch(rows_T, st, scal, *, cfg, interp, x0, y0):
+    """Plain PyTorch twin of the attempt kernel: same formulas, same order.
+
+    ``cfg = (ph, pw, lo, W, dx, dy, f, Cg)``."""
+    x, y, kk, ll, sgn, bx, by = st.unbind(0)
+    a0, dah, h, rtol, atol = scal.unbind(0)
+    dxg, dyg = cfg[4], cfg[5]
+    shx = x0 + bx * dxg
+    shy = y0 + by * dyg
+
+    def read_tap(t):
+        return rows_T[t]
+
+    x5, y5, k5, l5, esum = _attempt_math(
+        read_tap, x - shx, y - shy, kk, ll, sgn, a0, dah, h, rtol, atol, cfg,
+        interp)
+    return torch.stack([x5 + shx, y5 + shy, k5, l5, esum])
+
+
 # --- the kernel wrapper ------------------------------------------------------
 
-def _kernel_fn():
+def _kernel_fn(name: str, n_floats: int):
+    """The C entry point ``name`` of the kernels' library: (interp, rows_T,
+    st, scal, out, n, ``n_floats`` float constants, stream) -> cudaError_t."""
     from ._build import load_library
 
-    fn = load_library().jrsw_ray_step
+    fn = getattr(load_library(), name)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
-                       + [ctypes.c_float] * 10 + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -222,50 +309,77 @@ def substep_cfg(rp, interp: str) -> tuple:
     return (ph, pw, lo, n_channels(interp) * ph * pw, rp.dx, rp.dy, rp.f, rp.Cg)
 
 
+def _runs_on_cpu(rows_T, st, scal, *, interp: str, n_scal: int, name: str) -> bool:
+    """Validate a fused kernel's inputs: True when they lie on the CPU (the
+    twin's case), False on the card (the kernel's case); raise otherwise."""
+    if interp not in _INTERP_ID:
+        raise ValueError(f"unsupported fused interp {interp!r}; "
+                         f"available: {sorted(_INTERP_ID)}")
+    ph, pw, _ = PATCH_SHAPES[interp]
+    W = n_channels(interp) * ph * pw
+    n = st.shape[-1]
+    for arg, t, shape in (("rows_T", rows_T, (2 * W, n)), ("st", st, (7, n)),
+                          ("scal", scal, (n_scal,))):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{arg} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{arg} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+        if t.device != rows_T.device:
+            raise ValueError(f"{arg} is on {t.device}, rows_T on {rows_T.device}")
+    if rows_T.device.type == "cpu":
+        return True
+    if rows_T.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on CPU or CUDA tensors, "
+                           f"not {rows_T.device.type}")
+    if rows_T.requires_grad or st.requires_grad or scal.requires_grad:
+        raise NotImplementedError(
+            f"the CUDA {name} has no backward (the substep's is ROADMAP queue 1, "
+            "item 14: autograd.Function around the kernel; the attempt is "
+            "forward only, as in the reference)")
+    return False
+
+
+def _launch(fn, interp, rows_T, st, scal, out, floats) -> None:
+    f32 = ctypes.c_float
+    with torch.cuda.device(rows_T.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(_INTERP_ID[interp], rows_T.data_ptr(), st.data_ptr(), scal.data_ptr(),
+                 out.data_ptr(), st.shape[-1], *map(f32, floats), stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError_t {err}")
+
+
 def fused_substep(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
                   rp, interp: str, da: float) -> torch.Tensor:
     """One fused RK4 substep: ``(2W, N), (7, N), (2,) -> (4, N)``.
 
     CUDA tensors go through the hand-written kernel (and count one launch);
     CPU tensors go through the plain twin. Anything else raises."""
-    if interp not in _INTERP_ID:
-        raise ValueError(f"unsupported fused interp {interp!r}; "
-                         f"available: {sorted(_INTERP_ID)}")
-    cfg = substep_cfg(rp, interp)
-    W = cfg[3]
-    n = st.shape[-1]
-    for name, t, shape in (("rows_T", rows_T, (2 * W, n)), ("st", st, (7, n)),
-                           ("scal", scal, (2,))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != rows_T.device:
-            raise ValueError(f"{name} is on {t.device}, rows_T on {rows_T.device}")
-
-    if rows_T.device.type == "cpu":
-        return substep_torch(rows_T, st, scal, cfg=cfg, interp=interp, da=da,
-                             x0=rp.x0, y0=rp.y0)
-    if rows_T.device.type != "cuda":
-        raise RuntimeError(f"fused_substep runs on CPU or CUDA tensors, "
-                           f"not {rows_T.device.type}")
-    if rows_T.requires_grad or st.requires_grad or scal.requires_grad:
-        raise NotImplementedError(
-            "the CUDA fused substep has no backward yet (ROADMAP queue 1, "
-            "item 14: autograd.Function around the kernel)")
-
-    out = torch.empty((4, n), dtype=torch.float32, device=rows_T.device)
-    f32 = ctypes.c_float
-    with torch.cuda.device(rows_T.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(
-            _INTERP_ID[interp], rows_T.data_ptr(), st.data_ptr(), scal.data_ptr(),
-            out.data_ptr(), n, f32(rp.x0), f32(rp.y0), f32(rp.dx), f32(rp.dy),
-            f32(rp.f * rp.f), f32(rp.Cg * rp.Cg), f32(0.5 * da), f32(1.0 * da),
-            f32(RK4_B[0]), f32(RK4_B[1]), stream)
-    if err != 0:
-        raise RuntimeError(f"ray_step kernel launch failed: cudaError_t {err}")
+    if _runs_on_cpu(rows_T, st, scal, interp=interp, n_scal=2, name="fused substep"):
+        return substep_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
+                             interp=interp, da=da, x0=rp.x0, y0=rp.y0)
+    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=rows_T.device)
+    _launch(_kernel_fn("jrsw_ray_step", 10), interp, rows_T, st, scal, out,
+            (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg, 0.5 * da,
+             1.0 * da, RK4_B[0], RK4_B[1]))
     launches[interp] += 1
+    return out
+
+
+def fused_attempt(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
+                  rp, interp: str) -> torch.Tensor:
+    """One fused embedded DP5(4) attempt: ``(2W, N), (7, N), (5,) -> (5, N)``.
+
+    Forward only. CUDA tensors go through the hand-written kernel (and
+    count one attempt launch); CPU tensors go through the plain twin.
+    Anything else raises."""
+    if _runs_on_cpu(rows_T, st, scal, interp=interp, n_scal=5, name="fused attempt"):
+        return attempt_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
+                             interp=interp, x0=rp.x0, y0=rp.y0)
+    out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=rows_T.device)
+    _launch(_kernel_fn("jrsw_ray_attempt", 6), interp, rows_T, st, scal, out,
+            (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg))
+    attempt_launches[interp] += 1
     return out

@@ -1,5 +1,5 @@
-"""WKB ray integration through evolving 2-D flows, patch-table path (port
-of ``rays/raytrace.py``).
+"""WKB ray integration through evolving 2-D flows (port of
+``rays/raytrace.py``).
 
 Rays obey
 
@@ -10,11 +10,29 @@ Rays obey
 with the flow entering through the field stack ``(5, ny, nx)`` =
 [u, v, u_x, u_y, v_x], blended linearly in time between two snapshots.
 
-Only the patch gather path with fixed-step RK4 is ported: each substep
-gathers one (old|new) pair-table row per packet and runs the fused substep
-(``ops/ray_step.fused_substep``: the CUDA kernel on the card, its twin on
-the CPU). The taps path, the other integrators and the adaptive integrator
-are not ported yet (ROADMAP queue 1, items 13 and 15).
+Two gather strategies, chosen by ``RayParams.gather``:
+
+- ``'patch'``: once per (old, new) pair of snapshots the fields are packed
+  into a pair table (``rays/patch``); each substep or attempt gathers one
+  row per packet and every stage interpolates locally from it;
+- ``'taps'``: every stage gathers its taps from the time-blended field
+  stacks (``rays/interp``), the reference semantics the patch path is held
+  against.
+
+Integrators:
+
+- ``raytrace_tables`` / ``raytrace``: fixed steps. RK4 on the patch path
+  runs the fused substep (``ops/ray_step.fused_substep``: the CUDA kernel
+  on the card, its twin on the CPU); DP5 and the taps path run the
+  per-stage ``_step``.
+- ``raytrace_adaptive``: embedded Dormand-Prince 5(4) or Fehlberg 7(8)
+  with one shared step size. With the patch gather, pair 'dopri5' and
+  loop 'while' each attempt is the fused attempt
+  (``ops/ray_step.fused_attempt``); every other combination runs the
+  per-stage attempt.
+
+Not ported: implicit midpoint and ``gather='auto'`` (ROADMAP queue 1,
+items 15 and 13).
 """
 from __future__ import annotations
 
@@ -23,18 +41,24 @@ from typing import NamedTuple
 import torch
 
 from ..core.spectral import irfft2, spectral_gradients
-from ..ops.ray_step import fused_substep
-from .interp import bspline_prefilter_mask
+from ..ops.ray_step import fused_attempt, fused_substep
+from .dispersion import group_velocity
+from .interp import bspline_prefilter_mask, interpolate
 from .packets import Packets
-from .patch import PATCH_SHAPES
+from .patch import PATCH_SHAPES, build_patch_table, patch_interpolate_pair_shared
 
 __all__ = [
     "RayParams",
     "blend",
-    "check_patch_path",
+    "build_pair",
+    "check_ray_params",
     "fields_from_psih",
     "make_pair_table",
+    "raytrace",
+    "raytrace_adaptive",
     "raytrace_tables",
+    "sample_gradients",
+    "sample_velocity",
 ]
 
 _TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -50,18 +74,22 @@ class RayParams(NamedTuple):
     dx: float
     dy: float
     interp: str = "bilinear"   # 'bilinear' | 'bspline' | 'bicubic'
-    gather: str = "patch"      # only 'patch' is ported
+    gather: str = "patch"      # 'patch' | 'taps' ('auto' is not ported)
     # storage dtype of the pair table ('float32' | 'bfloat16'); stage math
     # always upcasts the gathered rows to float32
     table_dtype: str = "float32"
 
 
-def check_patch_path(rp: RayParams) -> None:
-    """Raise for a RayParams that needs code the port does not have yet."""
-    if rp.gather != "patch":
+def check_ray_params(rp: RayParams) -> None:
+    """Raise for a RayParams the port cannot run. The reference resolves
+    gather='auto' by a patch-vs-taps crossover measured on a TPU
+    (``resolve_gather``); the port's must be measured on the H100 first."""
+    if rp.gather == "auto":
         raise NotImplementedError(
-            f"gather={rp.gather!r}: only the patch path is ported (the taps "
-            "path is ROADMAP queue 1, item 13)")
+            "gather='auto' is not ported: its patch-vs-taps crossover must be "
+            "measured on the H100 (ROADMAP queue 1, item 13); pass 'patch' or 'taps'")
+    if rp.gather not in ("patch", "taps"):
+        raise ValueError(f"unknown gather {rp.gather!r}; available: ['patch', 'taps']")
     if rp.interp not in PATCH_SHAPES:
         raise ValueError(f"unknown interp {rp.interp!r}; available: "
                          f"{sorted(PATCH_SHAPES)}")
@@ -96,6 +124,34 @@ def make_pair_table(T_old: torch.Tensor, T_new: torch.Tensor,
     return torch.cat([T_old, T_new], dim=1).to(_TABLE_DTYPES[dtype])
 
 
+def build_pair(fields_old, fields_new, rp: RayParams) -> torch.Tensor:
+    """(old|new) pair table of two field stacks."""
+    return make_pair_table(build_patch_table(fields_old, rp.interp),
+                           build_patch_table(fields_new, rp.interp),
+                           rp.table_dtype)
+
+
+# --- samplers and the generic stage math -------------------------------------
+
+def _rhs(p: Packets, sample, a, rp: RayParams) -> Packets:
+    """WKB ray RHS; ``sample(x, y, a) -> (5, N)`` interpolated fields at
+    relative time a."""
+    u, v, ux, uy, vx = sample(p.x, p.y, a)[:5]
+    cgx, cgy = group_velocity(p.k, p.l, rp.f, rp.Cg, p.sign)
+    return Packets(u + cgx, v + cgy, -(ux * p.k + vx * p.l),
+                   -(uy * p.k - ux * p.l), torch.zeros_like(p.sign))
+
+
+def _make_taps_sampler(fields_old, fields_new, rp: RayParams):
+    """Global-gather sampler: blend the full field stacks, then gather."""
+
+    def sample(qx, qy, a):
+        return interpolate(blend(fields_old, fields_new, a), qx, qy, rp.x0, rp.y0,
+                           rp.dx, rp.dy, method=rp.interp)
+
+    return sample
+
+
 def _gather_patch_rows(T_pair, p: Packets, rp: RayParams, ny: int, nx: int):
     """One row gather (both time levels) at the packets' base cells ->
     (rows f32 (N, 2W), bx, by). Positions are never wrapped; only the cell
@@ -106,6 +162,141 @@ def _gather_patch_rows(T_pair, p: Packets, rp: RayParams, ny: int, nx: int):
             + torch.remainder(bx.to(torch.int32), nx))
     rows = T_pair.index_select(0, cell).float()
     return rows, bx, by
+
+
+def _patch_sampler_from_rows(rows, bx, by, rp: RayParams):
+    """Sampler over pre-gathered pair rows: each stage interpolates locally
+    and blends the interpolated values in time."""
+    ds = (rp.dx, rp.dy)   # derivative-channel scale (bicubic only)
+
+    def sample(qx, qy, a):
+        lx = (qx - rp.x0) / rp.dx - bx
+        ly = (qy - rp.y0) / rp.dy - by
+        return patch_interpolate_pair_shared(rows, lx, ly, a, method=rp.interp,
+                                             deriv_scale=ds)
+
+    return sample
+
+
+def _make_patch_sampler(T_pair, p: Packets, rp: RayParams, ny: int, nx: int):
+    """Gather + sampler in one call (the per-stage substep path)."""
+    return _patch_sampler_from_rows(*_gather_patch_rows(T_pair, p, rp, ny, nx), rp)
+
+
+def _axpy(p: Packets, d: Packets, h) -> Packets:
+    return Packets(p.x + h * d.x, p.y + h * d.y, p.k + h * d.k, p.l + h * d.l, p.sign)
+
+
+def _lincomb(p: Packets, ds, ws, h) -> Packets:
+    acc = [torch.zeros_like(p.x)] * 4
+    for d, w in zip(ds, ws):
+        acc[0] = acc[0] + w * d.x
+        acc[1] = acc[1] + w * d.y
+        acc[2] = acc[2] + w * d.k
+        acc[3] = acc[3] + w * d.l
+    return Packets(p.x + h * acc[0], p.y + h * acc[1], p.k + h * acc[2],
+                   p.l + h * acc[3], p.sign)
+
+
+# Dormand-Prince 5(4) tableau
+_DP_C = (0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0)
+_DP_A = (
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+# embedded 4th-order weights of the pair (the error estimator)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40)
+
+# Fehlberg 7(8): the 7th-order solution is propagated, the 8th-order one
+# estimates the error (the accuracy class of the reference's adaptive Vern7)
+_F78_C = (0.0, 2 / 27, 1 / 9, 1 / 6, 5 / 12, 1 / 2, 5 / 6, 1 / 6, 2 / 3,
+          1 / 3, 1.0, 0.0, 1.0)
+_F78_A = (
+    (),
+    (2 / 27,),
+    (1 / 36, 1 / 12),
+    (1 / 24, 0.0, 1 / 8),
+    (5 / 12, 0.0, -25 / 16, 25 / 16),
+    (1 / 20, 0.0, 0.0, 1 / 4, 1 / 5),
+    (-25 / 108, 0.0, 0.0, 125 / 108, -65 / 27, 125 / 54),
+    (31 / 300, 0.0, 0.0, 0.0, 61 / 225, -2 / 9, 13 / 900),
+    (2.0, 0.0, 0.0, -53 / 6, 704 / 45, -107 / 9, 67 / 90, 3.0),
+    (-91 / 108, 0.0, 0.0, 23 / 108, -976 / 135, 311 / 54, -19 / 60, 17 / 6,
+     -1 / 12),
+    (2383 / 4100, 0.0, 0.0, -341 / 164, 4496 / 1025, -301 / 82, 2133 / 4100,
+     45 / 82, 45 / 164, 18 / 41),
+    (3 / 205, 0.0, 0.0, 0.0, 0.0, -6 / 41, -3 / 205, -3 / 41, 3 / 41, 6 / 41,
+     0.0),
+    (-1777 / 4100, 0.0, 0.0, -341 / 164, 4496 / 1025, -289 / 82, 2193 / 4100,
+     51 / 82, 33 / 164, 12 / 41, 0.0, 1.0),
+)
+_F78_B7 = (41 / 840, 0.0, 0.0, 0.0, 0.0, 34 / 105, 9 / 35, 9 / 35, 9 / 280,
+           9 / 280, 41 / 840, 0.0, 0.0)
+_F78_B8 = (0.0, 0.0, 0.0, 0.0, 0.0, 34 / 105, 9 / 35, 9 / 35, 9 / 280,
+           9 / 280, 0.0, 41 / 840, 41 / 840)
+
+# name -> (C, A, propagated weights, error weights b_hi - b_lo, 1/(q+1))
+_EMBEDDED_PAIRS = {
+    "dopri5": (_DP_C, _DP_A, _DP_B,
+               tuple(b - b4 for b, b4 in zip(_DP_B, _DP_B4)), 0.2),
+    "rkf78": (_F78_C, _F78_A, _F78_B7,
+              tuple(b8 - b7 for b7, b8 in zip(_F78_B7, _F78_B8)), 0.125),
+}
+
+
+def _step(p: Packets, sample, a0, da, h, rp: RayParams, method: str) -> Packets:
+    """One substep from relative time a0 (in [0, 1] units of the flow
+    step); da = h / (t1 - t0). ``sample(x, y, a)`` interpolates the 5
+    fields."""
+    if method == "rk4":
+        k1 = _rhs(p, sample, a0, rp)
+        k2 = _rhs(_axpy(p, k1, 0.5 * h), sample, a0 + 0.5 * da, rp)
+        k3 = _rhs(_axpy(p, k2, 0.5 * h), sample, a0 + 0.5 * da, rp)
+        k4 = _rhs(_axpy(p, k3, h), sample, a0 + da, rp)
+        return _lincomb(p, (k1, k2, k3, k4), (1 / 6, 1 / 3, 1 / 3, 1 / 6), h)
+    if method == "dopri5":
+        ks = []
+        for ci, ai in zip(_DP_C, _DP_A):
+            q = _lincomb(p, ks, ai, h) if ai else p
+            ks.append(_rhs(q, sample, a0 + ci * da, rp))
+        return _lincomb(p, ks, _DP_B, h)
+    if method == "midpoint":
+        raise NotImplementedError(
+            "ray method 'midpoint' is not ported: its converged implicit "
+            "solve waits for the gradient port (ROADMAP queue 1, item 15)")
+    raise ValueError(f"unknown ray integrator {method!r}")
+
+
+def _use_patch(rp: RayParams) -> bool:
+    return rp.gather == "patch" and rp.interp in PATCH_SHAPES
+
+
+# --- fixed-step integration --------------------------------------------------
+
+def _as_time(t, device) -> torch.Tensor:
+    return torch.as_tensor(t, dtype=torch.float32, device=device)
+
+
+def _raytrace_taps(packets, fields_old, fields_new, t0, t1, rp: RayParams,
+                   nsubsteps: int, method: str) -> Packets:
+    """Reference-semantics path: the taps sampler over the time-blended
+    field stacks, ``_step`` per substep."""
+    dev = packets.x.device
+    h = (_as_time(t1, dev) - _as_time(t0, dev)) / nsubsteps
+    da = 1.0 / nsubsteps
+    sample = _make_taps_sampler(fields_old, fields_new, rp)
+    p = packets
+    for i in range(nsubsteps):
+        a0 = torch.full((), float(i), dtype=torch.float32, device=dev) * da
+        p = _step(p, sample, a0, da, h, rp, method)
+    return p
 
 
 def raytrace_tables(
@@ -120,26 +311,211 @@ def raytrace_tables(
     method: str = "rk4",
 ) -> Packets:
     """Advance packets from t0 to t1 through a pre-built (old|new) pair
-    table in ``nsubsteps`` fused RK4 substeps. ``t0``/``t1`` are 0-d float32
-    tensors (or floats) on the packets' device."""
-    if method != "rk4":
-        raise NotImplementedError(
-            f"ray method {method!r}: only fixed-step RK4 is ported (DP5, "
-            "midpoint and adaptive are ROADMAP queue 1, item 15)")
-    check_patch_path(rp)
+    table in ``nsubsteps`` fixed substeps. ``t0``/``t1`` are 0-d float32
+    tensors (or floats) on the packets' device. RK4 runs the fused substep;
+    DP5 runs the per-stage path."""
+    check_ray_params(rp)
     dev = packets.x.device
-    t0 = torch.as_tensor(t0, dtype=torch.float32, device=dev)
-    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    t0 = _as_time(t0, dev)
+    t1 = _as_time(t1, dev)
     h = (t1 - t0) / nsubsteps
     da = 1.0 / nsubsteps
     p = packets
     for i in range(nsubsteps):
         # a float32 product, as the reference's traced i * da
         a0 = torch.full((), float(i), dtype=torch.float32, device=dev) * da
-        rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
-        rows_T = rows.t().contiguous()
-        st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
-        out = fused_substep(rows_T, st, torch.stack([a0, h]), rp=rp,
-                            interp=rp.interp, da=da)
-        p = Packets(out[0], out[1], out[2], out[3], p.sign)
+        if method == "rk4":
+            rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
+            st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
+            out = fused_substep(rows.t().contiguous(), st, torch.stack([a0, h]), rp=rp,
+                                interp=rp.interp, da=da)
+            p = Packets(out[0], out[1], out[2], out[3], p.sign)
+        else:
+            p = _step(p, _make_patch_sampler(T_pair, p, rp, ny, nx), a0, da, h, rp, method)
     return p
+
+
+def raytrace(
+    packets: Packets,
+    fields_old,
+    fields_new,
+    t0,
+    t1,
+    rp: RayParams,
+    nsubsteps: int = 1,
+    method: str = "rk4",
+) -> Packets:
+    """Advance packets from t0 to t1 through linearly blended flow fields
+    in fixed substeps, by the patch or the taps path (``rp.gather``)."""
+    check_ray_params(rp)
+    if _use_patch(rp):
+        _, ny, nx = fields_old.shape
+        return raytrace_tables(packets, build_pair(fields_old, fields_new, rp), t0, t1,
+                               rp, ny, nx, nsubsteps, method)
+    return _raytrace_taps(packets, fields_old, fields_new, t0, t1, rp, nsubsteps,
+                          method)
+
+
+def _select_channels(fields, sel, interp):
+    """Slice base channels from a field stack; for the bicubic
+    [f|fx|fy|fxy] layout the selection applies within each of the 4
+    blocks."""
+    if interp == "bicubic":
+        F = fields.shape[0] // 4
+        sel = [b * F + j for b in range(4) for j in sel]
+    return fields[torch.as_tensor(sel, device=fields.device)]
+
+
+def sample_velocity(packets: Packets, fields, rp: RayParams):
+    """(u, v) at the packets' positions."""
+    vals = interpolate(_select_channels(fields, [0, 1], rp.interp), packets.x,
+                       packets.y, rp.x0, rp.y0, rp.dx, rp.dy, rp.interp)
+    return vals[0], vals[1]
+
+
+def sample_gradients(packets: Packets, fields, rp: RayParams):
+    """(ux, uy, vx, vy) at the packets' positions; vy = -ux."""
+    vals = interpolate(_select_channels(fields, [2, 3, 4], rp.interp), packets.x,
+                       packets.y, rp.x0, rp.y0, rp.dx, rp.dy, rp.interp)
+    return vals[0], vals[1], vals[2], -vals[0]
+
+
+# --- adaptive integration ----------------------------------------------------
+
+def raytrace_adaptive(
+    packets: Packets,
+    fields_old,
+    fields_new,
+    t0,
+    t1,
+    rp: RayParams,
+    rtol: float = 1e-5,
+    atol: float = 1e-7,
+    max_steps: int = 64,
+    init_substeps: int = 4,
+    pair: str = "dopri5",
+    loop: str = "scan",
+):
+    """Adaptive embedded ray integration with one step size shared by the
+    whole batch: Dormand-Prince 5(4) (``pair='dopri5'``) or Fehlberg 7(8)
+    (``'rkf78'``). Hairer's mixed error norm over all packets, step factor
+    0.9 (1/err)^(1/(q+1)) clipped to [0.2, 5]; a rejected attempt shrinks h
+    and retries from the same positions, reusing the rows it gathered.
+
+    ``loop='scan'`` runs exactly ``max_steps`` attempt slots, the finished
+    ones masked, and never waits on the device; ``loop='while'`` stops once
+    the clock reaches ``t1 - eps`` and waits on the device for that test
+    before the first attempt and after each one.
+
+    The patch gather with ``'dopri5'`` and ``'while'`` runs each attempt
+    through ``fused_attempt`` (the CUDA kernel on the card, its twin on the
+    CPU), which scales the error by patch-local positions; every other
+    combination runs the per-stage attempt, which scales it by global
+    positions, as the reference does in each case.
+
+    Returns ``(packets, info)``, info = dict of 0-d tensors ``t_reached``,
+    ``h_final``, ``n_accepted``, ``n_rejected``; ``t_reached < t1`` means
+    ``max_steps`` was too small for the tolerance.
+    """
+    if pair not in _EMBEDDED_PAIRS:
+        raise ValueError(f"unknown embedded pair {pair!r}; "
+                         f"available: {sorted(_EMBEDDED_PAIRS)}")
+    if loop not in ("scan", "while"):
+        raise ValueError(f"unknown loop {loop!r}; available: ['scan', 'while']")
+    check_ray_params(rp)
+    _, ny, nx = fields_old.shape
+    dev = packets.x.device
+    t0 = _as_time(t0, dev)
+    t1 = _as_time(t1, dev)
+    span = t1 - t0
+    use_patch = _use_patch(rp)
+    T_pair = build_pair(fields_old, fields_new, rp) if use_patch else None
+    C, A, BH, BE, exponent = _EMBEDDED_PAIRS[pair]
+    fused = use_patch and loop == "while" and pair == "dopri5"
+    n_total = packets.n
+    eps = 1e-9 * torch.abs(span)
+    tols = torch.tensor([rtol, atol], dtype=torch.float32, device=dev)
+
+    def attempt(p, t, h, sample):
+        """One per-stage attempt from (p, t) with size h -> (p_hi, sum of
+        squared scaled component errors, scaled by global positions)."""
+        a0 = (t - t0) / span
+        dah = h / span
+        ks = []
+        for ci, ai in zip(C, A):
+            q = _lincomb(p, ks, ai, h) if ai else p
+            ks.append(_rhs(q, sample, a0 + ci * dah, rp))
+        p5 = _lincomb(p, ks, BH, h)
+        zero = Packets(*(torch.zeros_like(p.x),) * 4, p.sign)
+        pe = _lincomb(zero, ks, BE, h)
+
+        def comp_err(e, y5, y):
+            sc = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y5))
+            return (e / sc) ** 2
+
+        e = (comp_err(pe.x, p5.x, p.x) + comp_err(pe.y, p5.y, p.y)
+             + comp_err(pe.k, p5.k, p.k) + comp_err(pe.l, p5.l, p.l))
+        return p5, torch.sum(e)
+
+    def err_norm(e_sum):
+        return torch.sqrt(e_sum / (4.0 * n_total))
+
+    def body(p, t, h, gathered):
+        """One attempt slot -> (p, t, h, accept, reject); ``gathered`` holds
+        the rows of the packets' current positions (None on the taps path)."""
+        done = t >= t1 - eps
+        h_eff = torch.minimum(h, t1 - t)
+        h_att = torch.where(done, h, h_eff)
+        if fused:
+            rows_T, bx, by = gathered
+            st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
+            scal = torch.cat([torch.stack([(t - t0) / span, h_att / span, h_att]), tols])
+            out5 = fused_attempt(rows_T, st, scal, rp=rp, interp=rp.interp)
+            p5 = Packets(out5[0], out5[1], out5[2], out5[3], p.sign)
+            err = err_norm(torch.sum(out5[4]))
+        else:
+            sample = (_patch_sampler_from_rows(*gathered, rp) if use_patch
+                      else _make_taps_sampler(fields_old, fields_new, rp))
+            p5, e_sum = attempt(p, t, h_att, sample)
+            err = err_norm(e_sum)
+        accept = (err <= 1.0) & ~done
+        reject = (err > 1.0) & ~done
+        p_next = Packets(*(torch.where(accept, a, b) for a, b in zip(p5, p)))
+        t_next = torch.where(accept, t + h_eff, t)
+        fac = torch.clip(0.9 * torch.clamp_min(err, 1e-10) ** (-exponent), 0.2, 5.0)
+        h_next = torch.where(done, h, torch.maximum(h_eff * fac, eps))
+        return p_next, t_next, h_next, accept, reject
+
+    def gather(p):
+        rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
+        # the kernel path carries the transposed rows, so a rejected
+        # attempt pays neither the gather nor the transpose again
+        return (rows.t().contiguous() if fused else rows), bx, by
+
+    p, t, h = packets, t0, span / init_substeps
+    nacc = torch.zeros((), dtype=torch.int32, device=dev)
+    nrej = torch.zeros((), dtype=torch.int32, device=dev)
+    if loop == "scan":
+        # max_steps slots, none waiting on the device: once the clock has
+        # reached t1 a slot is a no-op (nothing moves, nothing is counted),
+        # and each slot gathers the rows of the packets' current positions
+        for _ in range(max_steps):
+            p, t, h, accept, reject = body(p, t, h, gather(p) if use_patch else None)
+            nacc = nacc + accept.to(torch.int32)
+            nrej = nrej + reject.to(torch.int32)
+        return p, dict(t_reached=t, h_final=h, n_accepted=nacc, n_rejected=nrej)
+    # 'while' tests the clock on the host before every slot, the first
+    # included; the test after a slot also says whether the packets moved
+    # (then their rows are gathered anew; a rejected slot reuses them)
+    go, slots, gathered = bool(t < t1 - eps), 0, None
+    while go and slots < max_steps:
+        if use_patch and gathered is None:
+            gathered = gather(p)
+        p, t, h, accept, reject = body(p, t, h, gathered)
+        nacc = nacc + accept.to(torch.int32)
+        nrej = nrej + reject.to(torch.int32)
+        go, moved = torch.stack([t < t1 - eps, accept]).tolist()
+        if moved:
+            gathered = None
+        slots += 1
+    return p, dict(t_reached=t, h_final=h, n_accepted=nacc, n_rejected=nrej)

@@ -1,16 +1,20 @@
 """Where the time of one hero coupled step goes on an NVIDIA GPU.
 
-    python3 scripts/torch_hero_profile.py [--interp bilinear] [--trace DIR]
+    python3 scripts/torch_hero_profile.py [--interp bilinear]
+        [--ray-method rk4|adaptive] [--trace DIR]
 
 Builds the hero of ``chip_smoke.py`` (512^2 RSW + 1,048,576 packets,
 bfloat16 patch tables) with the PyTorch port and prints:
 
 1. the time of each stage of one coupled step, taken apart by hand and
-   timed with CUDA events (mean of 10 repetitions each);
-2. one frame of 5 coupled steps through ``make_coupled_frame`` under
-   ``torch.profiler``: device time by kernel name, and the device's busy
-   share of the frame's wall time (``--trace DIR`` also writes the Chrome
-   trace there).
+   timed with CUDA events (mean of 10 repetitions each), among them the
+   fused RK4 substep and the fused DP5(4) attempt, and one whole adaptive
+   interval (``raytrace_adaptive`` at the adaptive hero's options, its
+   pair-table build and its wait on the device included);
+2. one frame of 5 coupled steps through ``make_coupled_frame`` with the
+   RK4 or the adaptive ray method under ``torch.profiler``: device time by
+   kernel name, and the device's busy share of the frame's wall time
+   (``--trace DIR`` also writes the Chrome trace there).
 
 Needs a CUDA device.
 """
@@ -25,16 +29,17 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import DT, K0, K_CUTOFF, card_line, cuda_ms, make_case  # noqa: E402
+from chip_smoke import (DT, HERO_ADAPTIVE, K0, K_CUTOFF, card_line, cuda_ms,  # noqa: E402
+                        make_case)
 from juliaraytracingsw_tpu_torch.core.steppers import zero_clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled.driver import (  # noqa: E402
     SimState, make_coupled_frame)
 from juliaraytracingsw_tpu_torch.models.base import build_stepper  # noqa: E402
-from juliaraytracingsw_tpu_torch.ops.ray_step import fused_substep  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops.ray_step import fused_attempt, fused_substep  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.patch import build_patch_table  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.raytrace import (  # noqa: E402
-    _gather_patch_rows, fields_from_psih, make_pair_table)
+    _gather_patch_rows, fields_from_psih, make_pair_table, raytrace_adaptive)
 from juliaraytracingsw_tpu_torch.rays.resample import k_cutoff_reset  # noqa: E402
 
 
@@ -52,6 +57,8 @@ def stages(interp: str, device) -> None:
     rows_T = rows.t().contiguous()
     st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
     scal = torch.tensor([0.0, DT], device=device)
+    scal5 = torch.tensor([0.0, 1.0, DT, HERO_ADAPTIVE["rtol"], HERO_ADAPTIVE["atol"]],
+                         device=device)
     parts = {
         "flow step (IF-AB3 + RSW calcN)": lambda: step(sol, clock, ss),
         "fields_from_psih": lambda: fields_from_psih(psih_fn(sol), grid, interp),
@@ -64,22 +71,30 @@ def stages(interp: str, device) -> None:
         "stack st": lambda: torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by]),
         "fused RK4 substep kernel": lambda: fused_substep(rows_T, st, scal, rp=rp,
                                                           interp=interp, da=1.0),
+        "fused DP5(4) attempt kernel": lambda: fused_attempt(rows_T, st, scal5, rp=rp,
+                                                             interp=interp),
         "k_cutoff_reset": lambda: k_cutoff_reset(p, K_CUTOFF, K0),
     }
+    whole = ("raytrace_adaptive, one interval",
+             lambda: raytrace_adaptive(p, fields, fields, clock.t, clock.t + DT, rp,
+                                       **HERO_ADAPTIVE))
     total = 0.0
     for name, fn in parts.items():
         ms = cuda_ms(fn, warmup=2, iters=10)
         total += ms
         print(f"  {name:45s} {ms:8.3f} ms")
     print(f"  {'sum of the stages':45s} {total:8.3f} ms")
+    print(f"  {whole[0]:45s} {cuda_ms(whole[1], warmup=2, iters=10):8.3f} ms")
 
 
-def profiled_frame(interp: str, device, trace_dir: str | None) -> None:
+def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     grid, model, sol0, rp, psih_fn = make_case(512, interp, "bfloat16", device)
     init, step = build_stepper(model, "IFMAB3", DT)
-    frame = make_coupled_frame(model, step, psih_fn, rp, 5, k_cutoff=K_CUTOFF, k0=K0)
+    frame = make_coupled_frame(model, step, psih_fn, rp, 5, k_cutoff=K_CUTOFF, k0=K0,
+                               ray_method=ray_method, ray_opts=HERO_ADAPTIVE
+                               if ray_method == "adaptive" else None)
     p = lattice_packets(1024, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
     sim = SimState(sol0, zero_clock(device=device), init(sol0), p,
                    fields_from_psih(psih_fn(sol0), grid, interp))
@@ -98,7 +113,7 @@ def profiled_frame(interp: str, device, trace_dir: str | None) -> None:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"hero_{interp}_frame.json")
+        path = os.path.join(trace_dir, f"hero_{interp}_{ray_method}_frame.json")
         prof.export_chrome_trace(path)
         print(f"  chrome trace: {path}")
 
@@ -107,6 +122,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--interp", default="bilinear",
                     choices=["bilinear", "bspline", "bicubic"])
+    ap.add_argument("--ray-method", default="rk4", choices=["rk4", "adaptive"],
+                    help="ray method of the profiled frame")
     ap.add_argument("--trace", default=None, help="directory for the Chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -116,8 +133,9 @@ def main() -> int:
     print(f"card: {card_line()}; torch {torch.__version__}")
     print(f"hero {args.interp}, one coupled step by stage (CUDA events):")
     stages(args.interp, device)
-    print(f"hero {args.interp}, one frame of 5 coupled steps (torch.profiler):")
-    profiled_frame(args.interp, device, args.trace)
+    print(f"hero {args.interp}, one {args.ray_method} frame of 5 coupled steps "
+          f"(torch.profiler):")
+    profiled_frame(args.interp, args.ray_method, device, args.trace)
     return 0
 
 

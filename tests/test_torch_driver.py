@@ -1,6 +1,6 @@
 """Parity of the PyTorch port's coupled driver with the JAX package on the
-CPU: one coupled frame, the ``CoupledDriver`` lifecycle, and a state that
-JAX produced carried across by ``interop``.
+CPU: one coupled frame (fixed-step and adaptive), the ``CoupledDriver``
+lifecycle, and a state that JAX produced carried across by ``interop``.
 
 The configuration is the hero's (``bench.py``) cut to 64^2 and 1,024
 packets. Tolerances: the flow state agrees to 2e-6 of its largest mode
@@ -12,7 +12,16 @@ from the FFTs can flip one stored value by a bfloat16 ulp. A flipped
 gradient tap of size |grad u| ~ 6 moves k by up to h * 2^-8 * 6 * |k|
 = 2e-3 * 0.023 * 5.2 = 2.4e-4 per flow step; 5e-4 allows two such flips
 (measured 7.3e-5 in k, 2.4e-7 in x).
+
+The adaptive frames take the hero's ray options. With loop 'while' the
+port runs the fused attempt's formulation (patch-local error scaling),
+which the JAX package runs on the CPU only with ``JRSW_FUSED=jnp``, so
+that frame sets it; the driver test takes the default loop 'scan', the
+per-stage formulation in both.
 """
+import os
+
+import jax
 import numpy as np
 import pytest
 
@@ -125,6 +134,39 @@ def test_coupled_frame_matches_jax(table_dtype):
     assert moved > 1e-3
 
 
+HERO_ADAPTIVE = dict(rtol=1e-3, atol=1e-6, max_steps=16, init_substeps=1, loop="while")
+
+
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_adaptive_coupled_frame_matches_jax(table_dtype):
+    """One 5-step adaptive DP5(4) frame at 64^2 x 1,024 packets."""
+    j, t = _setup(table_dtype)
+    sims, infos = [], []
+    os.environ["JRSW_FUSED"] = "jnp"
+    try:
+        jax.clear_caches()
+        for d, mod, build, zclock in ((j, jdrv, jbuild, jzero_clock()),
+                                      (t, tdrv, tbuild, tzero_clock())):
+            init, step = build(d["model"], "IFMAB3", DT)
+            # the port hands each flow step's info to ray_info_fn
+            sink = dict(ray_info_fn=infos.append) if mod is tdrv else {}
+            frame = mod.make_coupled_frame(d["model"], step, d["psih_fn"], d["rp"], 5,
+                                           ray_method="adaptive", ray_opts=HERO_ADAPTIVE,
+                                           k_cutoff=KCUT, k0=K0, **sink)
+            fields = (jrt if mod is jdrv else trt).fields_from_psih(
+                d["psih_fn"](d["sol0"]), d["grid"], "bilinear")
+            sims.append(frame(mod.SimState(d["sol0"], zclock, init(d["sol0"]),
+                                           d["packets"], fields)))
+    finally:
+        del os.environ["JRSW_FUSED"]
+        jax.clear_caches()
+    sj, st = sims
+    _assert_states_match(st, sj, table_dtype)
+    # one accepted attempt per flow step, as on the hero
+    assert [(int(i["n_accepted"]), int(i["n_rejected"])) for i in infos] == [(1, 0)] * 5
+    assert np.abs(_np(st.packets.x) - _np(t["packets"].x)).max() > 1e-3
+
+
 def test_frozen_flow_frame_matches_jax():
     j, t = _setup()
     out = []
@@ -142,13 +184,13 @@ def test_frozen_flow_frame_matches_jax():
     _assert_states_match(st, sj)
 
 
-def _drivers(table_dtype="float32", **kw):
+def _drivers(table_dtype="float32", rp_gather="patch", **kw):
     j, t = _setup(table_dtype, sqrtp=16)
     common = dict(dt=DT, k_cutoff=KCUT, k0=K0, log_fn=lambda s: None, **kw)
-    dj = jdrv.CoupledDriver(model=j["model"], psih_fn=j["psih_fn"], rp=j["rp"],
-                            **common)
-    dt_ = tdrv.CoupledDriver(model=t["model"], psih_fn=t["psih_fn"], rp=t["rp"],
-                             **common)
+    dj = jdrv.CoupledDriver(model=j["model"], psih_fn=j["psih_fn"],
+                            rp=j["rp"]._replace(gather=rp_gather), **common)
+    dt_ = tdrv.CoupledDriver(model=t["model"], psih_fn=t["psih_fn"],
+                             rp=t["rp"]._replace(gather=rp_gather), **common)
     dj.init(j["sol0"], j["packets"])
     dt_.init(t["sol0"], t["packets"])
     return dj, dt_
@@ -167,6 +209,29 @@ def test_driver_init_spinup_run_matches_jax():
     _assert_states_match(dt_.sim, dj.sim)
     assert dt_.sim.clock.step == 18
     assert tops.launches == launches      # CPU tensors run the twin
+
+
+@pytest.mark.parametrize("ray_method", ["adaptive", "adaptive7", "dopri5"])
+def test_driver_ray_methods_match_jax(ray_method):
+    """init/spinup/run with the adaptive DP5(4), Fehlberg 7(8) and
+    fixed-step DP5 rays (default ray options)."""
+    dj, dt_ = _drivers(ray_method=ray_method)
+    for d in (dj, dt_):
+        d.spinup(4)
+        d.run(n_frames=2, flow_steps_per_frame=2)
+    _assert_states_match(dt_.sim, dj.sim)
+    assert dt_.sim.clock.step == 8
+    # the last run's adaptive integrations, one per flow step
+    assert len(dt_.ray_infos) == (0 if ray_method == "dopri5" else 4)
+    assert all(float(i["t_reached"]) > 0 for i in dt_.ray_infos)
+
+
+def test_driver_taps_frame_matches_jax():
+    """The frame's taps branch: fixed-step RK4 through the field stacks."""
+    dj, dt_ = _drivers(rp_gather="taps")
+    for d in (dj, dt_):
+        d.run(n_frames=1, flow_steps_per_frame=3)
+    _assert_states_match(dt_.sim, dj.sim)
 
 
 def test_interop_carries_jax_state_across():
@@ -189,7 +254,7 @@ def test_interop_carries_jax_state_across():
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(ray_method="adaptive"), "item 15"),
+    (dict(ray_method="midpoint"), "item 15"),
     (dict(remat=True), "item 14"),
     (dict(birth_death=True), "item 16"),
     (dict(packet_writer=object()), "item 21"),
@@ -203,10 +268,12 @@ def test_driver_unported_options_raise(option, item):
 
 
 def test_driver_taps_gather_raises():
+    """'patch' and 'taps' are ported; 'auto', whose crossover was measured
+    on a TPU, is not."""
     _, t = _setup(sqrtp=2, nx=16)
     with pytest.raises(NotImplementedError, match="item 13"):
         tdrv.CoupledDriver(model=t["model"], psih_fn=t["psih_fn"],
-                           rp=t["rp"]._replace(gather="taps"), dt=DT)
+                           rp=t["rp"]._replace(gather="auto"), dt=DT)
 
 
 def test_driver_nan_guard():

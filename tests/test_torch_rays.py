@@ -1,5 +1,6 @@
-"""Parity of the PyTorch port's ray half with the JAX package on the CPU,
-and the fused substep's wrapper.
+"""Parity of the PyTorch port's ray half with the JAX package on the CPU:
+tables, packets, the fused substep's twin and wrapper, fixed-step DP5 and
+the taps path.
 
 Table builds, packets and the k-cutoff are data movement and must agree
 exactly. The fused substep's twin ``substep_torch`` computes the JAX
@@ -9,8 +10,10 @@ package runs its per-stage sampler on the CPU, which sums the same terms
 in another order (rtol 1e-5, atol 1e-6, the JAX package's own bound for
 that pair in ``tests/test_pallas_ray_step.py``).
 
-The kernel itself runs only on an NVIDIA GPU: its tests are in
-``tests/test_torch_cuda.py``.
+The taps path gathers and sums the same taps in the same order as the
+JAX package (rtol 1e-6, atol 1e-6 on O(1) fields). The adaptive path's
+tests are in ``tests/test_torch_adaptive.py``; the kernels run only on an
+NVIDIA GPU, and their tests are in ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -25,6 +28,7 @@ from juliaraytracingsw_tpu.rays import dispersion as jdisp  # noqa: E402
 from juliaraytracingsw_tpu.rays import packets as jpk  # noqa: E402
 from juliaraytracingsw_tpu.rays import patch as jpatch  # noqa: E402
 from juliaraytracingsw_tpu.rays import raytrace as jrt  # noqa: E402
+from juliaraytracingsw_tpu.rays import interp as jinterp  # noqa: E402
 from juliaraytracingsw_tpu.rays.interp import (  # noqa: E402
     bspline_prefilter_mask as jprefilter)
 from juliaraytracingsw_tpu.rays.resample import k_cutoff_reset as jreset  # noqa: E402
@@ -34,6 +38,7 @@ from juliaraytracingsw_tpu_torch.rays import dispersion as tdisp  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import packets as tpk  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import patch as tpatch  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import raytrace as trt  # noqa: E402
+from juliaraytracingsw_tpu_torch.rays import interp as tinterp  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.interp import (  # noqa: E402
     bspline_prefilter_mask as tprefilter)
 from juliaraytracingsw_tpu_torch.rays.resample import k_cutoff_reset as treset  # noqa: E402
@@ -215,6 +220,61 @@ def test_raytrace_tables_matches_jax(interp, table_dtype):
     assert moved > 1e-3
 
 
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+def test_raytrace_tables_dopri5_matches_jax(table_dtype):
+    """Fixed-step DP5 runs the per-stage path in both packages."""
+    Tj, Tt = _tables("bilinear", table_dtype)
+    pj, pt = _packets()
+    out_j = jrt.raytrace_tables(pj, Tj, 0.0, 0.04, _rp(jrt, "bilinear", table_dtype),
+                                NY, NX, 2, "dopri5")
+    out_t = trt.raytrace_tables(pt, Tt, 0.0, 0.04, _rp(trt, "bilinear", table_dtype),
+                                NY, NX, 2, "dopri5")
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    assert np.abs(_np(out_t.x) - _np(pt.x)).max() > 1e-3
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_taps_interpolate_matches_jax(interp):
+    """Query points over three periods, so every tap index wraps."""
+    fo, _ = _fields(interp)
+    pj, pt = _packets(300, seed=6)
+    kw = dict(x0=-L / 2, y0=-L / 2, dx=L / NX, dy=L / NY, method=interp)
+    vt = tinterp.interpolate(torch.as_tensor(fo), pt.x, pt.y, **kw)
+    vj = jinterp.interpolate(jnp.asarray(fo), pj.x, pj.y, **kw)
+    assert vt.shape == (5, 300)
+    np.testing.assert_allclose(_np(vt), np.asarray(vj), rtol=1e-6, atol=1e-6)
+    with pytest.raises(ValueError, match="unknown"):
+        tinterp.interpolate(torch.as_tensor(fo), pt.x, pt.y, **dict(kw, method="cubic"))
+
+
+@pytest.mark.parametrize("interp", INTERPS)
+def test_sample_velocity_and_gradients_match_jax(interp):
+    fo, _ = _fields(interp)
+    pj, pt = _packets(64, seed=7)
+    for ft, fj in ((trt.sample_velocity, jrt.sample_velocity),
+                   (trt.sample_gradients, jrt.sample_gradients)):
+        vals_t = ft(pt, torch.as_tensor(fo), _rp(trt, interp))
+        vals_j = fj(pj, jnp.asarray(fo), _rp(jrt, interp))
+        assert len(vals_t) == len(vals_j)
+        for a, b in zip(vals_t, vals_j):
+            np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["rk4", "dopri5"])
+def test_raytrace_taps_matches_jax(method):
+    """The fixed-step taps path (the reference semantics), 3 substeps."""
+    fo, fn = _fields("bspline")
+    pj, pt = _packets()
+    out_j = jrt.raytrace(pj, jnp.asarray(fo), jnp.asarray(fn), 0.0, 0.03,
+                         _rp(jrt, "bspline")._replace(gather="taps"), 3, method)
+    out_t = trt.raytrace(pt, torch.as_tensor(fo), torch.as_tensor(fn), 0.0, 0.03,
+                         _rp(trt, "bspline")._replace(gather="taps"), 3, method)
+    for a, b in zip(out_t, out_j):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    assert np.abs(_np(out_t.x) - _np(pt.x)).max() > 1e-3
+
+
 def test_wrapper_on_cpu_uses_twin_and_counts_nothing():
     rows_T, st, scal = _fused_inputs("bspline")
     rp = _rp(trt, "bspline")
@@ -240,12 +300,12 @@ def test_wrapper_rejects_bad_inputs():
         tops.fused_substep(rows_T, st, scal, rp=rp, interp="cubic", da=1.0)
     with pytest.raises(RuntimeError, match="CPU or CUDA"):
         tops.fused_substep(rows_T.to("meta"), st.to("meta"), scal.to("meta"), **call)
-    with pytest.raises(NotImplementedError, match="RK4"):
+    with pytest.raises(NotImplementedError, match="item 15"):
         trt.raytrace_tables(tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160), 0.0,
-                            0.1, rp, NY, NX, method="dopri5")
-    with pytest.raises(NotImplementedError, match="taps"):
+                            0.1, rp, NY, NX, method="midpoint")
+    with pytest.raises(NotImplementedError, match="item 13"):
         trt.raytrace_tables(tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160), 0.0,
-                            0.1, rp._replace(gather="taps"), NY, NX)
+                            0.1, rp._replace(gather="auto"), NY, NX)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
