@@ -7,12 +7,18 @@ without them, and on any failed check. Phases, each printing its lines:
 
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the build of the kernels (``csrc/ray_step.cu``, the fused RK4 substep,
-   and ``csrc/ray_attempt.cu``, the fused DP5(4) attempt) by nvcc, one
-   process per source;
+   ``csrc/ray_attempt.cu``, the fused DP5(4) attempt, and the probe
+   kernels' three sources) by nvcc, one process per source;
 2. the RK4 kernel against its plain PyTorch twin at N = 1,048,576 packets
-   for each interpolation (bilinear, bspline, bicubic), timed with CUDA
-   events; 2b. the same for the attempt kernel, whose error row is also
+   for each interpolation (bilinear, bspline, bicubic), each timed on the
+   device in a CUDA graph, as the probes are; 2b. the same for the attempt kernel, whose error row is also
    held at a step where the truncation error is far above round-off;
+2c. the probe entry point (``juliaraytracingsw_tpu_torch.profiling``, the
+   port of the Pallas probe scripts in ``benchmarks/profiling/``): every
+   probe at its script's shapes through the copy and gather kernels
+   (``csrc/probe_copy.cu``, ``csrc/probe_gather.cu``,
+   ``csrc/probe_row_ring.cu``), each held bit-equal to its plain version
+   and timed beside its bound and its PyTorch library call;
 3. one coupled frame at 128^2 x 16,384 packets on the GPU (kernel) against
    the same frame on the CPU (twin); 3b. the same for one adaptive frame;
 4. the hero through ``CoupledDriver``: 512^2 RSW stepped by IF-AB3, coupled
@@ -25,8 +31,8 @@ without them, and on any failed check. Phases, each printing its lines:
    and rejected attempts of one interval; then 1 frame each of its
    bspline and bicubic rows.
 
-The kernels' launch counts are set to 0 before each main path (4 and 4b)
-and read after it.
+The kernels' launch counts are set to 0 before each main path (2c, 4 and
+4b) and read after it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -34,7 +40,6 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -49,6 +54,26 @@ KERNEL_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_step.cu"
 REPLACES = "juliaraytracingsw_tpu/ops/pallas_ray_step.py:284"
 ATTEMPT_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_attempt.cu"
 ATTEMPT_REPLACES = "juliaraytracingsw_tpu/ops/pallas_ray_step.py:462"
+# the probe kernels' rows in the kernels line: (module, probe-name prefix,
+# source, the Pallas kernels replaced), each the probe at the shapes nearest
+# the ray path's gather
+PROF = "benchmarks/profiling/"
+PROBE_KERNELS = {
+    "probe_copy": ("prof_r5_dma_bisect", "k1 ", "juliaraytracingsw_tpu_torch/csrc/probe_copy.cu",
+                   f"{PROF}prof_pallas_probe.py:48, {PROF}prof_r5_dma_bisect.py:51, :65, :81, "
+                   ":99, :122, :158"),
+    "gather_elems": ("prof_pallas_gather", "k1 ",
+                     "juliaraytracingsw_tpu_torch/csrc/probe_gather.cu",
+                     f"{PROF}prof_pallas_gather.py:51, :86, {PROF}prof_pallas2.py:41, "
+                     f"{PROF}prof_pallas3.py:40, :71"),
+    "gather_rows": ("prof_r5_dma_probe", "take W=160 f32",
+                    "juliaraytracingsw_tpu_torch/csrc/probe_gather.cu",
+                    f"{PROF}prof_pallas2.py:71, :103, :140"),
+    "row_ring": ("prof_r5_dma_probe", "per-row copy ring K=8 f32, 16 blocks",
+                 "juliaraytracingsw_tpu_torch/csrc/probe_row_ring.cu",
+                 f"{PROF}prof_r5_dma_probe.py:133, {PROF}prof_r5_dma2.py:78, :146, "
+                 f"{PROF}prof_r5_dma_bisect2.py:67"),
+}
 # the adaptive hero's options (bench.py:207-209): the reference's
 # production tolerances, one attempt per interval to start
 HERO_ADAPTIVE = dict(rtol=1e-3, atol=1e-6, max_steps=16, init_substeps=1, loop="while")
@@ -79,27 +104,6 @@ ESUM_ATOL_OF_MAX, NORM_RTOL = 1e-2, 1e-3
 # rows_T values a packet's stages read when they stay in its base cell:
 # 5 fields x 2x2 taps (4x4 bspline; 4 Hermite blocks x 2x2 bicubic) x 2 levels
 TOUCHED_TAPS = {"bilinear": 40, "bspline": 160, "bicubic": 160}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, warmup: int, iters: int) -> float:
-    """Mean milliseconds per call of ``fn`` on the current stream."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def psih_maker(grid, params):
@@ -213,19 +217,50 @@ def phase_kernels(card: str, device, n: int = 1 << 20, nx: int = 512) -> tuple[d
 def compare(card: str, what: str, n: int, rows_T, floats_per_packet: int, kernel,
             twin) -> dict:
     """Hold ``kernel()`` against ``twin()`` (rtol KERNEL_RTOL, atol
-    KERNEL_ATOL on every row) and time both with CUDA events."""
+    KERNEL_ATOL on every row) and time both on the device as the probes are
+    timed (``_timing.device_ms``, a CUDA graph); the kernel also eagerly."""
+    from juliaraytracingsw_tpu_torch.profiling._timing import bound_ms, device_ms, time_ms
+
     out, ref = kernel(), twin()
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
     torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
-    ms = cuda_ms(kernel, warmup=3, iters=20)
-    plain_ms = cuda_ms(twin, warmup=1, iters=3)
+    ms, eager_ms, plain_ms = device_ms(kernel), time_ms(kernel), device_ms(twin)
     gbytes = floats_per_packet * 4 * n / 1e9
+    # the least time: the touched taps, the state and the output moved once
+    bound = bound_ms(gbytes * 1e9)
     print(f"{what}: N={n}, rows_T {tuple(rows_T.shape)}, max |kernel - twin| = {err:.3e} "
-          f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); kernel {ms:.4f} ms, twin "
-          f"{plain_ms:.3f} ms; {gbytes:.3f} GB of touched taps, state and output -> "
-          f"{gbytes / ms * 1e3:.0f} GB/s at least [{card}]")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+          f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); kernel {ms:.4f} ms ({eager_ms:.4f} ms "
+          f"eager), twin {plain_ms:.3f} ms; {gbytes:.3f} GB of touched taps, state and "
+          f"output -> {gbytes / ms * 1e3:.0f} GB/s at least, bound {bound:.4f} ms [{card}]")
+    # no one PyTorch call computes a substep or an attempt
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=None)
+
+
+def phase_probes(card: str, device) -> tuple[dict, dict]:
+    """The probe entry point, every probe at its script's shapes, each
+    kernel held bit-equal to its plain version inside; its launches counted
+    from 0. Returns (the kernels' rows, the launch counts)."""
+    from juliaraytracingsw_tpu_torch import profiling
+    from juliaraytracingsw_tpu_torch.ops import probes
+
+    t0 = time.perf_counter()
+    probes.reset_launches()
+    results = profiling.run_all(device)
+    torch.cuda.synchronize()
+    counts = dict(probes.launches)
+    print(f"phase 2c (probe entry point): {sum(map(len, results.values()))} probes in "
+          f"{time.perf_counter() - t0:.2f} s; kernel launches {counts}")
+    rows = {}
+    for kernel, (module, prefix, _, _) in PROBE_KERNELS.items():
+        if counts[kernel] == 0:
+            raise AssertionError(f"the probe entry point never launched {kernel}")
+        res = next(r for r in results[module] if r.probe.startswith(prefix))
+        rows[kernel] = dict(max_abs_err=res.max_abs_err, ms=res.ms, plain_ms=res.plain_ms,
+                            bound_ms=res.bound_ms, bound_by="bytes",
+                            library_ms=res.library_ms)
+    return rows, counts
 
 
 def error_row(what: str, n: int, out, ref, hold: bool) -> None:
@@ -412,6 +447,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.profiling._timing import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -421,6 +457,7 @@ def main() -> int:
 
     phase_environment(card)
     kernels, attempts = phase_kernels(card, device)
+    probe_rows, probe_counts = phase_probes(card, device)
     phase_gpu_vs_cpu(device)
     phase_gpu_vs_cpu(device, "adaptive", HERO_ADAPTIVE)
 
@@ -466,7 +503,10 @@ def main() -> int:
         {"name": f"ray_attempt_dp5_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,
          "replaces": ATTEMPT_REPLACES, "launches": attempt_counts[interp],
          **attempts[interp]}
-        for interp in INTERPS]}))
+        for interp in INTERPS] + [
+        {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": probe_counts[kernel], **probe_rows[kernel]}
+        for kernel, (_, _, source, replaces) in PROBE_KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -78,7 +78,7 @@ def make_grid(
     Ly: float | None = None,
     aliased_fraction: float = 1.0 / 3.0,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Grid:
     """Build a float32 Grid with every array on ``device``."""
     ny = nx if ny is None else ny

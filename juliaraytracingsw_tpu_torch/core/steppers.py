@@ -32,7 +32,7 @@ def tick(clock: Clock, dt: float) -> Clock:
     return Clock(clock.t + dt, clock.step + 1)
 
 
-def zero_clock(*, device: torch.device | str = "cpu") -> Clock:
+def zero_clock(*, device: torch.device | str = "cuda") -> Clock:
     return Clock(torch.zeros((), dtype=torch.float32, device=device), 0)
 
 

@@ -46,7 +46,7 @@ def sim_state_to_numpy(sim) -> dict:
     return d
 
 
-def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cpu") -> SimState:
+def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> SimState:
     """Build this package's SimState (IF-AB3 stepper state) on ``device``."""
 
     def t(key, dtype):

@@ -34,7 +34,7 @@ def lattice_packets(
     x0: float | None = None,
     y0: float | None = None,
     *,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> Packets:
     """Uniform sqrtN x sqrtN lattice of packets with |k| = k0 and
     alternating +/- branches; with ``k_ring`` packet j's wavevector points

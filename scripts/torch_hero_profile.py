@@ -7,7 +7,8 @@ Builds the hero of ``chip_smoke.py`` (512^2 RSW + 1,048,576 packets,
 bfloat16 patch tables) with the PyTorch port and prints:
 
 1. the time of each stage of one coupled step, taken apart by hand and
-   timed with CUDA events (mean of 10 repetitions each), among them the
+   timed with CUDA events (``_timing.time_ms``: the median of 3 timings of
+   10 calls each, called from Python, host work included), among them the
    fused RK4 substep and the fused DP5(4) attempt, and one whole adaptive
    interval (``raytrace_adaptive`` at the adaptive hero's options, its
    pair-table build and its wait on the device included);
@@ -29,13 +30,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (DT, HERO_ADAPTIVE, K0, K_CUTOFF, card_line, cuda_ms,  # noqa: E402
-                        make_case)
+from chip_smoke import DT, HERO_ADAPTIVE, K0, K_CUTOFF, make_case  # noqa: E402
 from juliaraytracingsw_tpu_torch.core.steppers import zero_clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled.driver import (  # noqa: E402
     SimState, make_coupled_frame)
 from juliaraytracingsw_tpu_torch.models.base import build_stepper  # noqa: E402
 from juliaraytracingsw_tpu_torch.ops.ray_step import fused_attempt, fused_substep  # noqa: E402
+from juliaraytracingsw_tpu_torch.profiling._timing import card_line, time_ms  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.patch import build_patch_table  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.raytrace import (  # noqa: E402
@@ -80,11 +81,11 @@ def stages(interp: str, device) -> None:
                                        **HERO_ADAPTIVE))
     total = 0.0
     for name, fn in parts.items():
-        ms = cuda_ms(fn, warmup=2, iters=10)
+        ms = time_ms(fn)
         total += ms
         print(f"  {name:45s} {ms:8.3f} ms")
     print(f"  {'sum of the stages':45s} {total:8.3f} ms")
-    print(f"  {whole[0]:45s} {cuda_ms(whole[1], warmup=2, iters=10):8.3f} ms")
+    print(f"  {whole[0]:45s} {time_ms(whole[1]):8.3f} ms")
 
 
 def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:

@@ -9,6 +9,8 @@ round-off: relative 2e-6 of the field's largest magnitude for one
 transform, looser where steps accumulate it.
 """
 import ast
+import importlib
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -169,7 +171,7 @@ def test_ifab3_steps_match(nsteps, tol):
     ij, sj = jbase.build_stepper(mj, "IFMAB3", dt)
     it, s_t = tbase.build_stepper(mt, "IFMAB3", dt)
     out_j = jbase.run(sj, sol_j, jstep.zero_clock(), ij(sol_j), nsteps)
-    out_t = tbase.run(s_t, sol_t, tstep.zero_clock(), it(sol_t), nsteps)
+    out_t = tbase.run(s_t, sol_t, tstep.zero_clock(device="cpu"), it(sol_t), nsteps)
     assert out_t[1].step == nsteps == int(out_j[1].step)
     assert out_t[1].t.dtype == torch.float32
     assert float(out_t[1].t) == float(out_j[1].t)   # float32 accumulation
@@ -186,7 +188,7 @@ def test_stepper_registry():
     assert set(tbase.STEPPERS) <= set(jbase.STEPPERS)
     init, step = tbase.build_stepper(mt, "ETDAB3", 1e-3, use_filter=True)
     sol = torch.zeros((3, 16, 9), dtype=torch.complex64)
-    out, clock, _ = step(sol, tstep.zero_clock(), init(sol))
+    out, clock, _ = step(sol, tstep.zero_clock(device="cpu"), init(sol))
     assert clock.step == 1 and torch.count_nonzero(out) == 0
 
 
@@ -211,3 +213,13 @@ def test_port_never_imports_jax():
             if root in ("jax", "jaxlib", "juliaraytracingsw_tpu"):
                 bad.append(f"{f.relative_to(PORT)}: {name}")
     assert not bad, bad
+
+
+@pytest.mark.parametrize("entry", ["core.grid.make_grid", "core.steppers.zero_clock",
+                                   "rays.packets.lattice_packets",
+                                   "interop.sim_state_from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    """A caller who names no device runs on the card; the CPU is asked for."""
+    module, name = entry.rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"juliaraytracingsw_tpu_torch.{module}"), name)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -132,3 +132,107 @@ def test_attempt_kernel_refuses_what_it_cannot_do(cuda_device):
     before = dict(ray_step.attempt_launches)
     out = ray_step.fused_attempt(rows_T.cpu(), st.cpu(), scal.cpu(), **call)
     assert out.device.type == "cpu" and ray_step.attempt_launches == before
+
+
+# --- the copy and gather probe kernels (ops/probes.py) ------------------------
+
+def _probes():
+    from juliaraytracingsw_tpu_torch.ops import probes
+    return probes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["trivial", "k0", "k1", "k2", "k3", "k4", "k5"])
+def test_copy_probe_matches_plain(name, cuda_device):
+    """Each Pallas feature probe's schedule at its own shape, bit-equal."""
+    probes = _probes()
+    sched, a, b, shape = probes.COPY_PROBES[name]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    before = probes.launches["probe_copy"]
+    out = probes.staged_copy(x, sched, a, b)
+    torch.cuda.synchronize()
+    assert probes.launches["probe_copy"] == before + 1
+    assert torch.equal(out, probes.staged_copy_torch(x, sched, a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["flat", "axis0", "axis1"])
+def test_gather_elems_matches_plain(mode, cuda_device):
+    probes = _probes()
+    g = torch.Generator().manual_seed(1)
+    table = torch.randn((300, 128), generator=g)
+    hi = {"flat": table.numel(), "axis0": 300, "axis1": 128}[mode]
+    idx = torch.randint(0, hi, (1000 if mode == "flat" else 300, 128), generator=g,
+                        dtype=torch.int32)
+    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    before = probes.launches["gather_elems"]
+    out = probes.gather_elems(table, idx, mode)
+    torch.cuda.synchronize()
+    assert probes.launches["gather_elems"] == before + 1
+    assert torch.equal(out, probes.gather_elems_torch(table, idx, mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["f32", "f32_round_bf16", "bf16", "bf16_to_f32", "narrow"])
+def test_gather_rows_matches_plain(form, cuda_device):
+    """Rows of 160 (40 16-byte chunks: lanes loop) and of 4 floats."""
+    probes = _probes()
+    g = torch.Generator().manual_seed(2)
+    W = 4 if form == "narrow" else 160
+    table = torch.randn((500, W), generator=g)
+    if form.startswith("bf16"):
+        table = table.bfloat16()
+    rows = torch.randint(0, 500, (3001,), generator=g, dtype=torch.int32)
+    table, rows = table.to(cuda_device), rows.to(cuda_device)
+    kw = dict(round_bf16=form == "f32_round_bf16",
+              out_dtype=torch.float32 if form == "bf16_to_f32" else None)
+    out = probes.gather_rows(table, rows, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, probes.gather_rows_torch(table, rows, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,Q,dtype,indices", [
+    (8, 1, torch.float32, False), (4, 1, torch.bfloat16, False), (8, 8, torch.float32, False),
+    (8, 32, torch.float32, False), (8, 1, torch.float32, True)])
+def test_row_ring_matches_plain(K, Q, dtype, indices, cuda_device):
+    """8 blocks of 8192 rows: block 7's rows pass the int32 overflow of
+    the synthetic walk; modulus R - Q is no power of two."""
+    probes = _probes()
+    g = torch.Generator().manual_seed(3)
+    R, rpb, nb = 4096, 8192, 8
+    table = torch.randn((R, 160), generator=g).to(dtype).to(cuda_device)
+    kw = dict(n_blocks=nb, rows_per_blk=rpb, K=K, Q=Q)
+    if indices:
+        kw["idx"] = torch.randint(0, R, (nb * rpb,), generator=g,
+                                  dtype=torch.int32).to(cuda_device)
+    else:
+        kw["modulus"] = R - Q
+    before = probes.launches["row_ring"]
+    out = probes.row_ring(table, **kw)
+    torch.cuda.synchronize()
+    assert probes.launches["row_ring"] == before + 1
+    assert out.shape == (nb, rpb, 160)
+    assert torch.equal(out, probes.row_ring_torch(table, **kw))
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_refuse_what_they_cannot_do(cuda_device):
+    probes = _probes()
+    table = torch.zeros((64, 128), device=cuda_device)
+    rows = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError, match="int32"):
+        probes.gather_rows(table, rows.long())
+    with pytest.raises(ValueError, match="is on"):
+        probes.gather_rows(table, rows.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        probes.gather_elems(table.t(), torch.zeros((8, 64), dtype=torch.int32,
+                                                   device=cuda_device), "axis0")
+    with pytest.raises(ValueError, match="16-byte"):
+        probes.gather_rows(torch.zeros((64, 3), device=cuda_device), rows)
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.staged_copy(torch.zeros((512, 128), device=cuda_device),
+                           probes.CopySchedule(q=512), 1.0, 0.0)
+    before = dict(probes.launches)
+    out = probes.gather_rows(table.cpu(), rows.cpu())
+    assert out.device.type == "cpu" and probes.launches == before

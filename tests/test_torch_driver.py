@@ -119,7 +119,7 @@ def test_coupled_frame_matches_jax(table_dtype):
     j, t = _setup(table_dtype)
     sims = []
     for d, mod, build, zclock in ((j, jdrv, jbuild, jzero_clock()),
-                                  (t, tdrv, tbuild, tzero_clock())):
+                                  (t, tdrv, tbuild, tzero_clock(device="cpu"))):
         init, step = build(d["model"], "IFMAB3", DT)
         frame = mod.make_coupled_frame(d["model"], step, d["psih_fn"], d["rp"], 5,
                                        k_cutoff=KCUT, k0=K0)
@@ -146,7 +146,7 @@ def test_adaptive_coupled_frame_matches_jax(table_dtype):
     try:
         jax.clear_caches()
         for d, mod, build, zclock in ((j, jdrv, jbuild, jzero_clock()),
-                                      (t, tdrv, tbuild, tzero_clock())):
+                                      (t, tdrv, tbuild, tzero_clock(device="cpu"))):
             init, step = build(d["model"], "IFMAB3", DT)
             # the port hands each flow step's info to ray_info_fn
             sink = dict(ray_info_fn=infos.append) if mod is tdrv else {}
@@ -171,7 +171,7 @@ def test_frozen_flow_frame_matches_jax():
     j, t = _setup()
     out = []
     for d, mod, build, zclock in ((j, jdrv, jbuild, jzero_clock()),
-                                  (t, tdrv, tbuild, tzero_clock())):
+                                  (t, tdrv, tbuild, tzero_clock(device="cpu"))):
         init, step = build(d["model"], "IFMAB3", DT)
         frame = mod.make_coupled_frame(d["model"], step, d["psih_fn"], d["rp"], 3,
                                        frozen_flow=True, dt=DT)
