@@ -7,12 +7,18 @@ without them, and on any failed check. Phases, each printing its lines:
 
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the build of the kernels (``csrc/ray_step.cu``, the fused RK4 substep,
-   ``csrc/ray_attempt.cu``, the fused DP5(4) attempt, and the probe
-   kernels' three sources) by nvcc, one process per source;
+   ``csrc/ray_attempt.cu``, the fused DP5(4) attempt, each in its first cut
+   and its table form, and the probe kernels' three sources) by nvcc, one
+   process per source;
 2. the RK4 kernel against its plain PyTorch twin at N = 1,048,576 packets
-   for each interpolation (bilinear, bspline, bicubic), each timed on the
-   device in a CUDA graph, as the probes are; 2b. the same for the attempt kernel, whose error row is also
-   held at a step where the truncation error is far above round-off;
+   for each interpolation (bilinear, bspline, bicubic): the first cut on
+   rows gathered from the float32 table, the table form reading the
+   float32 and the bfloat16 table itself, held also against the first cut
+   on the rows the ray path gathers, each timed on the device in a CUDA
+   graph, as the probes are, the table form beside the whole first-cut
+   path (gather, upcast, transpose, kernel); 2b. the same for the attempt
+   kernel, whose error row is also held at a step where the truncation
+   error is far above round-off;
 2c. the probe entry point (``juliaraytracingsw_tpu_torch.profiling``, the
    port of the Pallas probe scripts in ``benchmarks/profiling/``): every
    probe at its script's shapes through the copy and gather kernels
@@ -32,7 +38,8 @@ without them, and on any failed check. Phases, each printing its lines:
    bspline and bicubic rows.
 
 The kernels' launch counts are set to 0 before each main path (2c, 4 and
-4b) and read after it.
+4b) and read after it; the heroes must launch only the table forms. The
+first cut runs on no main path: its launches are phase 2's.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,6 +57,7 @@ F, CG, DT = 3.0, 1.0, 1e-3          # the hero's f, Cg and flow dt
 K0 = float(np.sqrt(3.0) * F / CG)
 K_CUTOFF = 100.0 * F / CG
 INTERPS = ("bilinear", "bspline", "bicubic")
+TABLE_DTYPES = ("float32", "bfloat16")
 KERNEL_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_step.cu"
 REPLACES = "juliaraytracingsw_tpu/ops/pallas_ray_step.py:284"
 ATTEMPT_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_attempt.cu"
@@ -152,24 +160,29 @@ def phase_environment(card: str) -> None:
     print(f"phase 1 (environment) done in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_kernels(card: str, device, n: int = 1 << 20, nx: int = 512) -> tuple[dict, dict]:
-    """Each interp's kernels against their twins at the hero's shapes: rows
-    gathered at n random packet positions from the pair table of two hero
-    flow fields (the IC of seed 1 as the old level, of seed 2 as the new);
-    one substep, and one attempt, of the hero's dt."""
+def phase_kernels(card: str, device, n: int = 1 << 20, nx: int = 512) -> tuple[dict, ...]:
+    """Each interp's kernels against their twins at the hero's shapes: n
+    random packet positions over the pair table of two hero flow fields
+    (the IC of seed 1 as the old level, of seed 2 as the new); one substep,
+    and one attempt, of the hero's dt. The first cut runs on the rows
+    gathered from the float32 table; the table forms read the float32 and
+    the bfloat16 table themselves, each held against its twin and against
+    the first cut on the rows the ray path would have gathered, and timed
+    beside that whole first-cut path (gather, upcast, transpose, kernel)."""
     from juliaraytracingsw_tpu_torch.coupled.initial_conditions import band_geo_wave_ic
     from juliaraytracingsw_tpu_torch.ops import ray_step
-    from juliaraytracingsw_tpu_torch.rays.packets import Packets
-    from juliaraytracingsw_tpu_torch.rays.raytrace import (
-        _gather_patch_rows, build_pair, fields_from_psih)
+    from juliaraytracingsw_tpu_torch.profiling._timing import unique_rows
+    from juliaraytracingsw_tpu_torch.rays.raytrace import build_pair, fields_from_psih
 
-    results, attempts = {}, {}
+    results, attempts, tables, table_attempts = {}, {}, {}, {}
     for interp in INTERPS:
         grid, _, sol0, rp, psih_fn = make_case(nx, interp, "float32", device)
+        ny = grid.ny
         sol1 = band_geo_wave_ic(grid, np.random.default_rng(2), Kg=(10, 13), Kw=(0, 5),
                                 ag=0.5, aw=0.05, f=F, Cg=CG)
         fo, fn = (fields_from_psih(psih_fn(s), grid, interp) for s in (sol0, sol1))
-        T_pair = build_pair(fo, fn, rp)
+        pairs = {dtype: build_pair(fo, fn, rp._replace(table_dtype=dtype))
+                 for dtype in TABLE_DTYPES}
         del fo, fn
         rng = np.random.default_rng(11)
         x, y = rng.uniform(-grid.Lx / 2, grid.Lx / 2, (2, n)).astype(np.float32)
@@ -177,48 +190,84 @@ def phase_kernels(card: str, device, n: int = 1 << 20, nx: int = 512) -> tuple[d
         kk = (K0 * np.cos(phase)).astype(np.float32)
         ll = (K0 * np.sin(phase)).astype(np.float32)
         sign = np.where(np.arange(n) % 2 == 0, -1.0, 1.0).astype(np.float32)
-        p = Packets(*(torch.as_tensor(a, device=device) for a in (x, y, kk, ll, sign)))
-        rows, bx, by = _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)
-        rows_T = rows.t().contiguous()
-        del rows, T_pair
-        st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
+        st = torch.as_tensor(np.stack([x, y, kk, ll, sign]), device=device)
+        rows_T, st7 = ray_step.first_cut_inputs(pairs["float32"], st, rp, ny, grid.nx)
+        cells = (torch.remainder(st7[6].to(torch.int32), ny) * grid.nx
+                 + torch.remainder(st7[5].to(torch.int32), grid.nx))
+        held_rows = unique_rows(cells)
         cfg = ray_step.substep_cfg(rp, interp)
         scal = torch.tensor([0.0, DT], dtype=torch.float32, device=device)
+        # the first cut: the touched taps, the state and the output moved once
         results[interp] = compare(
-            card, f"kernel {interp}", n, rows_T, TOUCHED_TAPS[interp] + 7 + 4,
-            lambda: ray_step.fused_substep(rows_T, st, scal, rp=rp, interp=interp, da=1.0),
-            lambda: ray_step.substep_torch(rows_T, st, scal, cfg=cfg, interp=interp,
+            card, f"kernel {interp}, rows_T {tuple(rows_T.shape)}", n,
+            (TOUCHED_TAPS[interp] + 7 + 4) * 4 * n,
+            lambda: ray_step.fused_substep(rows_T, st7, scal, rp=rp, interp=interp, da=1.0),
+            lambda: ray_step.substep_torch(rows_T, st7, scal, cfg=cfg, interp=interp,
                                            da=1.0, x0=rp.x0, y0=rp.y0))
         # one attempt of the hero's dt over the whole interval, at the
         # adaptive hero's tolerances; then one where the error row decides
-        def attempt(kernel, scal5):
-            if kernel:
-                return ray_step.fused_attempt(rows_T, st, scal5, rp=rp, interp=interp)
-            return ray_step.attempt_torch(rows_T, st, scal5, cfg=cfg, interp=interp,
-                                          x0=rp.x0, y0=rp.y0)
-
-        # [a0, dah, h, rtol, atol] on the card before the timed calls
+        # ([a0, dah, h, rtol, atol] on the card before the timed calls)
         hero_scal, trunc_scal = (
             torch.tensor([0.0, 1.0, h, rtol, atol], dtype=torch.float32, device=device)
             for h, rtol, atol in ((DT, HERO_ADAPTIVE["rtol"], HERO_ADAPTIVE["atol"]),
                                   (TRUNC_H, TRUNC_TOL, TRUNC_TOL)))
+
+        def attempt(kernel, scal5):
+            if kernel:
+                return ray_step.fused_attempt(rows_T, st7, scal5, rp=rp, interp=interp)
+            return ray_step.attempt_torch(rows_T, st7, scal5, cfg=cfg, interp=interp,
+                                          x0=rp.x0, y0=rp.y0)
+
         attempts[interp] = compare(
-            card, f"attempt kernel {interp}", n, rows_T, TOUCHED_TAPS[interp] + 7 + 5,
+            card, f"attempt kernel {interp}, rows_T {tuple(rows_T.shape)}", n,
+            (TOUCHED_TAPS[interp] + 7 + 5) * 4 * n,
             lambda: attempt(True, hero_scal), lambda: attempt(False, hero_scal))
         error_row(f"attempt kernel {interp}, the hero's dt (round-off, not held)", n,
                   attempt(True, hero_scal), attempt(False, hero_scal), hold=False)
         error_row(f"attempt kernel {interp}, h {TRUNC_H}, rtol = atol = {TRUNC_TOL}", n,
                   attempt(True, trunc_scal), attempt(False, trunc_scal), hold=True)
-        del rows_T, st
+        del rows_T, st7
+
+        # the table forms, over each table dtype
+        for dtype, T_pair in pairs.items():
+            rpd = rp._replace(table_dtype=dtype)
+            geo = dict(ny=ny, nx=grid.nx)
+            # the table rows that hold a packet, read once, the state and
+            # the output
+            row_bytes = held_rows * T_pair.shape[1] * T_pair.element_size()
+            sub = dict(rp=rpd, interp=interp, da=1.0)
+            tables[interp, dtype] = compare_table(
+                card, f"table kernel {interp}, {dtype} table {tuple(T_pair.shape)}", n,
+                row_bytes + (5 + 4) * 4 * n,
+                lambda: ray_step.table_substep(T_pair, st, scal, **sub, **geo),
+                lambda: ray_step.table_substep_torch(T_pair, st, scal, **sub, **geo),
+                lambda: ray_step.fused_substep(
+                    *ray_step.first_cut_inputs(T_pair, st, rpd, ny, grid.nx), scal, **sub))
+
+            def table_attempt(kernel, scal5):
+                fn = ray_step.table_attempt if kernel else ray_step.table_attempt_torch
+                return fn(T_pair, st, scal5, rp=rpd, interp=interp, **geo)
+
+            table_attempts[interp, dtype] = compare_table(
+                card, f"table attempt kernel {interp}, {dtype} table {tuple(T_pair.shape)}", n,
+                row_bytes + (5 + 5) * 4 * n,
+                lambda: table_attempt(True, hero_scal), lambda: table_attempt(False, hero_scal),
+                lambda: ray_step.fused_attempt(
+                    *ray_step.first_cut_inputs(T_pair, st, rpd, ny, grid.nx), hero_scal, rp=rpd,
+                    interp=interp))
+            error_row(f"table attempt kernel {interp}, {dtype} table, h {TRUNC_H}, rtol = "
+                      f"atol = {TRUNC_TOL}", n, table_attempt(True, trunc_scal),
+                      table_attempt(False, trunc_scal), hold=True)
+        del pairs, st
         torch.cuda.empty_cache()
-    return results, attempts
+    return results, attempts, tables, table_attempts
 
 
-def compare(card: str, what: str, n: int, rows_T, floats_per_packet: int, kernel,
-            twin) -> dict:
+def compare(card: str, what: str, n: int, nbytes: float, kernel, twin) -> dict:
     """Hold ``kernel()`` against ``twin()`` (rtol KERNEL_RTOL, atol
     KERNEL_ATOL on every row) and time both on the device as the probes are
-    timed (``_timing.device_ms``, a CUDA graph); the kernel also eagerly."""
+    timed (``_timing.device_ms``, a CUDA graph); the kernel also eagerly.
+    ``nbytes``: the least the function must move, for its bound."""
     from juliaraytracingsw_tpu_torch.profiling._timing import bound_ms, device_ms, time_ms
 
     out, ref = kernel(), twin()
@@ -226,16 +275,35 @@ def compare(card: str, what: str, n: int, rows_T, floats_per_packet: int, kernel
     err = float((out - ref).abs().max())
     torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
     ms, eager_ms, plain_ms = device_ms(kernel), time_ms(kernel), device_ms(twin)
-    gbytes = floats_per_packet * 4 * n / 1e9
-    # the least time: the touched taps, the state and the output moved once
-    bound = bound_ms(gbytes * 1e9)
-    print(f"{what}: N={n}, rows_T {tuple(rows_T.shape)}, max |kernel - twin| = {err:.3e} "
-          f"(rtol {KERNEL_RTOL}, atol {KERNEL_ATOL}); kernel {ms:.4f} ms ({eager_ms:.4f} ms "
-          f"eager), twin {plain_ms:.3f} ms; {gbytes:.3f} GB of touched taps, state and "
-          f"output -> {gbytes / ms * 1e3:.0f} GB/s at least, bound {bound:.4f} ms [{card}]")
+    bound = bound_ms(nbytes)
+    print(f"{what}: N={n}, max |kernel - twin| = {err:.3e} (rtol {KERNEL_RTOL}, atol "
+          f"{KERNEL_ATOL}); kernel {ms:.4f} ms ({eager_ms:.4f} ms eager), twin "
+          f"{plain_ms:.3f} ms; {nbytes / 1e9:.4f} GB at least -> {nbytes / 1e6 / ms:.0f} GB/s, "
+          f"bound {bound:.4f} ms [{card}]")
     # no one PyTorch call computes a substep or an attempt
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=None)
+
+
+def compare_table(card: str, what: str, n: int, nbytes: float, kernel, twin,
+                  first_cut) -> dict:
+    """``compare`` for a table kernel, and then against ``first_cut()``, the
+    path it replaces (gather, upcast, transpose, first-cut kernel): the
+    largest difference (bit-equal expected: the bf16 upcast is exact and the
+    stage code is the same; held to the kernel tolerance) and that whole
+    path's time in one CUDA graph."""
+    from juliaraytracingsw_tpu_torch.profiling._timing import device_ms
+
+    res = compare(card, what, n, nbytes, kernel, twin)
+    out, ref = kernel(), first_cut()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    torch.testing.assert_close(out, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    first_ms = device_ms(first_cut)
+    print(f"  {what}: max |table kernel - first cut| = {err:.3e} (bit-equal "
+          f"{torch.equal(out, ref)}); first-cut path (gather, upcast, transpose, kernel) "
+          f"{first_ms:.4f} ms, {first_ms / res['ms']:.1f}x the table kernel [{card}]")
+    return dict(res, max_abs_err_first_cut=err, first_cut_ms=first_ms)
 
 
 def phase_probes(card: str, device) -> tuple[dict, dict]:
@@ -311,16 +379,20 @@ def coupled_frame(device, nx: int = 128, sqrtp: int = 128, flow_steps: int = 5,
 
 def phase_gpu_vs_cpu(device, ray_method: str = "rk4", ray_opts: dict | None = None) -> None:
     """One 128^2 x 16,384-packet frame on the GPU (the kernel) against the
-    CPU (its twin); the GPU frame must launch the kernel once per substep
-    (RK4) or attempt (adaptive), and the adaptive frames must take the same
-    accept/reject decisions."""
+    CPU (its twin); the GPU frame must launch the table kernel once per
+    substep (RK4) or attempt (adaptive) and no first-cut kernel, and the
+    adaptive frames must take the same accept/reject decisions."""
     from juliaraytracingsw_tpu_torch.ops import ray_step
 
-    counts = ray_step.attempt_launches if ray_method == "adaptive" else ray_step.launches
+    counts = (ray_step.table_attempt_launches if ray_method == "adaptive"
+              else ray_step.table_launches)
     before = counts["bilinear"]
+    first_cut = launch_counts()["first cut"]
     _, gpu, gpu_infos = coupled_frame(device, ray_method=ray_method, ray_opts=ray_opts)
     torch.cuda.synchronize()
     launched = counts["bilinear"] - before
+    if launch_counts()["first cut"] != first_cut:
+        raise AssertionError("the GPU frame launched a first-cut (rows_T) kernel")
     start, cpu, cpu_infos = coupled_frame("cpu", ray_method=ray_method, ray_opts=ray_opts)
     decisions = [[(int(i["n_accepted"]), int(i["n_rejected"])) for i in infos]
                  for infos in (gpu_infos, cpu_infos)]
@@ -376,14 +448,16 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
         end.record()
         torch.cuda.synchronize()
         res["flow_steps_per_s"] = spinup_steps / (start.elapsed_time(end) / 1e3)
-    launches0 = ray_step.launches[interp]
-    attempt_launches0 = ray_step.attempt_launches[interp]
+    launches0 = ray_step.table_launches[interp]
+    attempt_launches0 = ray_step.table_attempt_launches[interp]
+    first_cut0 = launch_counts()["first cut"]
     marks.append(torch.cuda.Event(enable_timing=True))
     marks[-1].record()
     drv.run(n_frames=n_frames, flow_steps_per_frame=flow_steps)
     torch.cuda.synchronize()
-    res["launches"] = ray_step.launches[interp] - launches0
-    res["attempt_launches"] = ray_step.attempt_launches[interp] - attempt_launches0
+    res["launches"] = ray_step.table_launches[interp] - launches0
+    res["attempt_launches"] = ray_step.table_attempt_launches[interp] - attempt_launches0
+    res["first_cut_launches"] = launch_counts()["first cut"] - first_cut0
     res["attempts"] = sum(int(i["n_accepted"]) + int(i["n_rejected"])
                           for i in drv.ray_infos)
     res["coupled_steps"] = n_frames * flow_steps
@@ -405,11 +479,12 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
             else "over 1 frame, first call included")
     if ray_method == "rk4":
         rate = f"{res['ray_steps_per_s']:.4e} ray-steps/s"
-        kernel = f"kernel launches {res['launches']}"
+        kernel = f"table kernel launches {res['launches']}"
     else:
         rate = f"{res['ray_steps_per_s']:.4e} ray-intervals/s"
-        kernel = (f"attempt kernel launches {res['attempt_launches']} for "
-                  f"{res['attempts']} attempts, RK4 kernel launches {res['launches']}")
+        kernel = (f"table attempt kernel launches {res['attempt_launches']} for "
+                  f"{res['attempts']} attempts, RK4 table kernel launches {res['launches']}")
+    kernel += f", first-cut (rows_T) kernel launches {res['first_cut_launches']}"
     print(f"hero {tag} (512^2 RSW + {res['n']} packets, bf16 tables): {flow}"
           f"{res['coupled_steps_per_s']:.2f} coupled steps/s, {rate} {over} "
           f"(frame ms {', '.join(f'{m:.2f}' for m in frame_ms)}); {kernel}; "
@@ -418,11 +493,24 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
     return res
 
 
+def launch_counts() -> dict:
+    """The ray kernels' launch counts: each table form's, and the first
+    cut's (both first-cut kernels summed over interps)."""
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+
+    return {"table": dict(ray_step.table_launches),
+            "table attempt": dict(ray_step.table_attempt_launches),
+            "first cut": sum(ray_step.launches.values()) + sum(ray_step.attempt_launches.values())}
+
+
 def check_rows(rows: list, interps) -> None:
     for interp, res in zip(interps, rows):
         if not (res["finite"] and res["kmax"] < K_CUTOFF and res["dE"] < 0.01):
             raise AssertionError(f"hero {interp}: finite={res['finite']}, "
                                  f"max|k|={res['kmax']}, dE={res['dE']}")
+        if res["first_cut_launches"]:
+            raise AssertionError(f"hero {interp} launched {res['first_cut_launches']} "
+                                 f"first-cut (rows_T) kernels")
 
 
 def adaptive_interval(card: str, device) -> None:
@@ -456,7 +544,12 @@ def main() -> int:
     card = card_line()
 
     phase_environment(card)
-    kernels, attempts = phase_kernels(card, device)
+    # the first cut runs on no main path any more: its rows count phase 2's
+    # launches, as the probes' rows count phase 2c's
+    ray_step.reset_launches()
+    kernels, attempts, tables, table_attempts = phase_kernels(card, device)
+    first_cut_counts = dict(ray_step.launches)
+    first_cut_attempt_counts = dict(ray_step.attempt_launches)
     probe_rows, probe_counts = phase_probes(card, device)
     phase_gpu_vs_cpu(device)
     phase_gpu_vs_cpu(device, "adaptive", HERO_ADAPTIVE)
@@ -465,11 +558,12 @@ def main() -> int:
     ray_step.reset_launches()
     main_run = hero(card, device, "bilinear", spinup_steps=200, n_frames=4)
     if main_run["launches"] != 20:
-        raise AssertionError(f"hero launched the kernel {main_run['launches']} times, not 20")
+        raise AssertionError(f"hero launched the table kernel {main_run['launches']} times, "
+                             f"not 20")
     rows = [main_run] + [hero(card, device, interp, spinup_steps=0, n_frames=2)
                          for interp in INTERPS[1:]]
     check_rows(rows, INTERPS)
-    counts = dict(ray_step.launches)
+    counts = dict(ray_step.table_launches)
 
     # the adaptive main path: its launches are counted from 0 again
     ray_step.reset_launches()
@@ -479,9 +573,10 @@ def main() -> int:
                                 ray_method="adaptive", ray_opts=HERO_ADAPTIVE)
                            for interp in INTERPS[1:]]
     check_rows(ad_rows, INTERPS)
-    attempt_counts = dict(ray_step.attempt_launches)
-    if any(ray_step.launches.values()):
-        raise AssertionError(f"the adaptive path launched RK4 kernels: {ray_step.launches}")
+    attempt_counts = dict(ray_step.table_attempt_launches)
+    if any(ray_step.table_launches.values()):
+        raise AssertionError(f"the adaptive path launched RK4 kernels: "
+                             f"{ray_step.table_launches}")
     for res in ad_rows:
         # at least one attempt per coupled step, and one launch per attempt
         if not res["attempt_launches"] == res["attempts"] >= res["coupled_steps"]:
@@ -489,19 +584,28 @@ def main() -> int:
                                  f"launches for {res['attempts']} attempts in "
                                  f"{res['coupled_steps']} coupled steps")
     adaptive_interval(card, device)
-    for name, got in (("ray_step", counts), ("ray_attempt", attempt_counts)):
+    for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
                 raise AssertionError(f"the {name} {interp} kernel was not launched by "
                                      f"its main path")
 
+    hero_dtype = "bfloat16"     # the table rows of the kernels line: the heroes' dtype
     print(f"card: {card}")
     print(json.dumps({"kernels": [
+        {"name": f"ray_step_rk4_table_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": REPLACES, "launches": counts[interp], "table_dtype": hero_dtype,
+         **tables[interp, hero_dtype]}
+        for interp in INTERPS] + [
+        {"name": f"ray_attempt_dp5_table_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,
+         "replaces": ATTEMPT_REPLACES, "launches": attempt_counts[interp],
+         "table_dtype": hero_dtype, **table_attempts[interp, hero_dtype]}
+        for interp in INTERPS] + [
         {"name": f"ray_step_rk4_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": counts[interp], **kernels[interp]}
+         "replaces": REPLACES, "launches": first_cut_counts[interp], **kernels[interp]}
         for interp in INTERPS] + [
         {"name": f"ray_attempt_dp5_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,
-         "replaces": ATTEMPT_REPLACES, "launches": attempt_counts[interp],
+         "replaces": ATTEMPT_REPLACES, "launches": first_cut_attempt_counts[interp],
          **attempts[interp]}
         for interp in INTERPS] + [
         {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,

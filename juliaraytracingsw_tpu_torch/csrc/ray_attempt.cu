@@ -1,5 +1,5 @@
-// Fused embedded Dormand-Prince 5(4) attempt over gathered patch rows
-// (CUDA C++, sm_90a).
+// Fused embedded Dormand-Prince 5(4) attempt (CUDA C++, sm_90a), in two
+// forms over one piece of stage math.
 //
 // Replaces the Pallas TPU kernel `_attempt_kernel` that `make_fused_attempt`
 // builds in juliaraytracingsw_tpu/ops/pallas_ray_step.py (pallas_call at
@@ -12,7 +12,7 @@
 // adaptive ray path (rays/raytrace.raytrace_adaptive, pair 'dopri5',
 // loop 'while', patch gather).
 //
-// Contract (the reference's, kept 1:1 with the twin):
+// The first cut keeps the reference's contract, 1:1 with the twin:
 //   rows_T (2W, N) f32  gathered (old|new) patch rows, tap-major;
 //   st     (7, N)  f32  [x y k l sign bx by], (bx, by) the patch base cell;
 //   scal   (5,)    f32  [a0, dah, h, rtol, atol] in DEVICE memory: a0, dah
@@ -22,17 +22,23 @@
 //                       packet's sum of squared scaled component errors.
 // The caller turns sum(esum) into the batch's Hairer norm.
 //
+// The table form, the one the adaptive path runs, reads the pair table
+// T_pair (ny*nx, 2W) f32 or bf16 itself and takes st (5, N) = [x y k l
+// sign]; each warp stages its packets' rows into shared memory, tap-major,
+// as ray_step.cu's table form does (ray_sample.cuh: stage_rows). A rejected
+// attempt reads its rows again (at the hero's size 84 MB of bf16 rows,
+// 0.025 ms at 3.35 TB/s), where the first cut's caller reused gathered and
+// transposed rows that cost 6.7 ms to make.
+//
 // The error is scaled by PATCH-LOCAL positions (x - shx, y - shy), as the
 // reference kernel scales it; the shift is added back to the outputs only.
 // (The reference's unfused attempt scales by global positions: a different
 // formulation, kept apart in rays/raytrace.py.)
 //
-// What bounds it on the H100: memory, as for ray_step.cu. Each of the 7
-// stages reads only the taps that carry weight (40 of 160 bilinear values,
-// 160 of 360 bspline, 160 of 640 bicubic), mostly the same taps from L1.
-// One thread integrates one packet through all 7 stages in registers. The
-// 5th-order sum and the error sum accumulate stage by stage, in the twin's
-// order, so only the stage slopes that later stage inputs need stay live.
+// What bounds it on the H100: memory, as for ray_step.cu. One thread
+// integrates one packet through all 7 stages in registers. The 5th-order
+// sum and the error sum accumulate stage by stage, in the twin's order, so
+// only the stage slopes that later stage inputs need stay live.
 //
 // Every tableau constant is the float32 rounding of the Python double the
 // twin uses (b - b4 is subtracted in double, then rounded once). Stage
@@ -94,25 +100,23 @@ __device__ __forceinline__ float comp_err(float e, float y_new, float y_old, flo
   return r * r;
 }
 
-template <int I>
-__global__ void __launch_bounds__(256)
-ray_attempt_kernel(const float* __restrict__ rows, const float* __restrict__ st,
-                   const float* __restrict__ scal, float* __restrict__ out, int64_t n,
-                   RayConsts c) {
-  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// One DP5(4) attempt of packet i from its rows; writes out[:, i].
+template <int I, class R>
+__device__ __forceinline__ void dp5_packet(const R& rows, float x, float y, float kk, float ll,
+                                           float sgn, float bx, float by,
+                                           const float* __restrict__ scal, const RayConsts& c,
+                                           float* __restrict__ out, int64_t n, int64_t i) {
   const float a0 = scal[0], dah = scal[1], h = scal[2], rtol = scal[3], atol = scal[4];
-  const float sgn = st[4 * n + i], bx = st[5 * n + i], by = st[6 * n + i];
   // patch base in physical coordinates; stage math and the error scale run
   // patch-local
   const float shx = c.x0 + bx * c.dx;
   const float shy = c.y0 + by * c.dy;
-  const float z0[4] = {st[i] - shx, st[n + i] - shy, st[2 * n + i], st[3 * n + i]};
+  const float z0[4] = {x - shx, y - shy, kk, ll};
 
   float k1[4], k2[4], k3[4], k4[4], k5[4], k6[4], k7[4], q[4];
   float s5[4], se[4];  // running 5th-order and error sums
   auto stage = [&](const float qs[4], float ci, float kout[4]) {
-    rhs<I>(rows, n, i, qs[0], qs[1], qs[2], qs[3], sgn, a0 + ci * dah, c, kout);
+    rhs<I>(rows, qs[0], qs[1], qs[2], qs[3], sgn, a0 + ci * dah, c, kout);
   };
   auto reset = [&](float qs[4]) {
 #pragma unroll
@@ -186,16 +190,90 @@ ray_attempt_kernel(const float* __restrict__ rows, const float* __restrict__ st,
   out[4 * n + i] = esum;
 }
 
+constexpr int kThreads = 256;
+
+// the first cut: rows_T (2W, N) in device memory
+template <int I>
+__global__ void __launch_bounds__(kThreads)
+ray_attempt_kernel(const float* __restrict__ rows, const float* __restrict__ st,
+                   const float* __restrict__ scal, float* __restrict__ out, int64_t n,
+                   RayConsts c) {
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Rows<float, int64_t> src{rows + i, rows + int64_t(pair_width<I>() / 2) * n + i, n};
+  dp5_packet<I>(src, st[i], st[n + i], st[2 * n + i], st[3 * n + i], st[4 * n + i],
+                st[5 * n + i], st[6 * n + i], scal, c, out, n, i);
+}
+
+// the table form: each warp stages its packets' rows from T_pair
+template <int I, typename T>
+__global__ void __launch_bounds__(TableTile<I, T>::kThreads)
+ray_attempt_table_kernel(const T* __restrict__ table, int ny, int nx,
+                         const float* __restrict__ st, const float* __restrict__ scal,
+                         float* __restrict__ out, int64_t n, RayConsts c) {
+  extern __shared__ uint4 smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i - lane >= n) return;                  // the whole warp is past the end
+  T* tile = reinterpret_cast<T*>(smem_raw) +
+            (threadIdx.x >> 5) * (TableTile<I, T>::kWidth * kTileStride);
+  const bool live = i < n;
+  float x = 0.0f, y = 0.0f, bx = 0.0f, by = 0.0f;
+  int64_t row = -1;
+  if (live) {
+    x = st[i];
+    y = st[n + i];
+    row = table_row(x, y, c, ny, nx, &bx, &by);
+  }
+  stage_rows<I>(table, row, tile, lane);
+  __syncwarp();
+  if (!live) return;
+  const Rows<T, int> src{tile + lane, tile + (pair_width<I>() / 2) * kTileStride + lane,
+                          kTileStride};
+  dp5_packet<I>(src, x, y, st[2 * n + i], st[3 * n + i], st[4 * n + i], bx, by, scal, c, out,
+                n, i);
+}
+
+template <int I, typename T>
+int launch_table(const void* table, int ny, int nx, const float* st, const float* scal,
+                 float* out, long long n, const RayConsts& c, cudaStream_t s) {
+  using G = TableTile<I, T>;
+  auto kernel = ray_attempt_table_kernel<I, T>;
+  // set on every call: the attributes belong to the current device
+  const cudaError_t attr = set_table_attributes(kernel, G::kBlockBytes);
+  if (attr != cudaSuccess) return int(attr);
+  const unsigned blocks = unsigned((n + G::kThreads - 1) / G::kThreads);
+  kernel<<<blocks, G::kThreads, G::kBlockBytes, s>>>(static_cast<const T*>(table), ny, nx, st,
+                                                      scal, out, n, c);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_table(int interp, const void* table, int ny, int nx, const float* st,
+                   const float* scal, float* out, long long n, const RayConsts& c,
+                   cudaStream_t s) {
+  switch (interp) {
+    case kBilinear:
+      return launch_table<kBilinear, T>(table, ny, nx, st, scal, out, n, c, s);
+    case kBspline:
+      return launch_table<kBspline, T>(table, ny, nx, st, scal, out, n, c, s);
+    case kBicubic:
+      return launch_table<kBicubic, T>(table, ny, nx, st, scal, out, n, c, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Launches on `stream` without
-// synchronising and returns the launch's cudaError_t (0 on success).
+// Plain C entry points (loaded with ctypes). Each launches on `stream`
+// without synchronising and returns the launch's cudaError_t (0 on
+// success), or the error of setting the table kernel's shared memory.
 extern "C" int jrsw_ray_attempt(int interp, const float* rows_T, const float* st,
                                 const float* scal, float* out, long long n, float x0, float y0,
                                 float dx, float dy, float f2, float Cg2, void* stream) {
   if (n <= 0) return 0;
   const RayConsts c{x0, y0, dx, dy, f2, Cg2};
-  constexpr int kThreads = 256;
   const unsigned blocks = unsigned((n + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (interp) {
@@ -212,4 +290,22 @@ extern "C" int jrsw_ray_attempt(int interp, const float* rows_T, const float* st
       return int(cudaErrorInvalidValue);
   }
   return int(cudaGetLastError());
+}
+
+// T_pair (ny*nx, 2W) of dtype `table_dtype` (0 f32, 1 bf16); st (5, N).
+extern "C" int jrsw_ray_attempt_table(int interp, int table_dtype, const void* table, int ny,
+                                      int nx, const float* st, const float* scal, float* out,
+                                      long long n, float x0, float y0, float dx, float dy,
+                                      float f2, float Cg2, void* stream) {
+  if (n <= 0) return 0;
+  const RayConsts c{x0, y0, dx, dy, f2, Cg2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (table_dtype) {
+    case kTableF32:
+      return dispatch_table<float>(interp, table, ny, nx, st, scal, out, n, c, s);
+    case kTableBf16:
+      return dispatch_table<bf16_bits>(interp, table, ny, nx, st, scal, out, n, c, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }

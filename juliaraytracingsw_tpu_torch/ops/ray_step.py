@@ -1,27 +1,38 @@
-"""Fused ray kernels over gathered patch rows (port of
-``ops/pallas_ray_step.py``).
+"""Fused ray kernels (port of ``ops/pallas_ray_step.py``).
 
 Two hand-written CUDA kernels replace the reference's two Pallas TPU
-kernels, each beside its plain PyTorch twin, a line-for-line copy of the
-reference's jnp twin:
+kernels, each in two forms over one piece of stage math
+(``csrc/ray_sample.cuh``), each beside its plain PyTorch twin, a
+line-for-line copy of the reference's jnp twin:
 
-- ``fused_substep`` launches ``csrc/ray_step.cu`` (the reference's
-  ``_kernel`` built by ``make_fused_substep``): one RK4 substep. Twin:
-  ``substep_torch`` (``_substep_math``/``substep_jnp``).
-- ``fused_attempt`` launches ``csrc/ray_attempt.cu`` (``_attempt_kernel``
-  built by ``make_fused_attempt``): one embedded Dormand-Prince 5(4)
-  attempt of the adaptive path. Twin: ``attempt_torch``
-  (``_attempt_math``/``attempt_jnp``).
+- ``csrc/ray_step.cu`` (the reference's ``_kernel`` built by
+  ``make_fused_substep``): one RK4 substep. ``table_substep`` launches its
+  table form, the one the ray path runs; ``fused_substep`` its first cut.
+  Twins: ``table_substep_torch``; ``substep_torch``
+  (``_substep_math``/``substep_jnp``).
+- ``csrc/ray_attempt.cu`` (``_attempt_kernel`` built by
+  ``make_fused_attempt``): one embedded Dormand-Prince 5(4) attempt of the
+  adaptive path. ``table_attempt`` launches its table form,
+  ``fused_attempt`` its first cut. Twins: ``table_attempt_torch``;
+  ``attempt_torch`` (``_attempt_math``/``attempt_jnp``).
 
 A wrapper runs the twin for tensors on the CPU and the kernel for tensors
 on the card; the tests and ``chip_smoke.py`` hold each kernel against its
-twin.
+twin, and each table form against its first cut.
 
-Contracts (the reference's): ``rows_T (2W, N)`` f32 gathered (old|new)
-patch rows, ``st (7, N)`` f32 = [x y k l sign bx by]; the substep takes
-``scal (2,)`` = [a0, h] and gives ``(4, N)`` = [x' y' k' l']; the attempt
-takes ``scal (5,)`` = [a0, dah, h, rtol, atol] and gives ``(5, N)`` =
-[x5 y5 k5 l5 esum], esum the packet's sum of squared scaled errors.
+The first cut's contracts (the reference's): ``rows_T (2W, N)`` f32
+gathered (old|new) patch rows, ``st (7, N)`` f32 = [x y k l sign bx by];
+the substep takes ``scal (2,)`` = [a0, h] and gives ``(4, N)`` = [x' y' k'
+l']; the attempt takes ``scal (5,)`` = [a0, dah, h, rtol, atol] and gives
+``(5, N)`` = [x5 y5 k5 l5 esum], esum the packet's sum of squared scaled
+errors.
+
+The table forms take the pair table ``T_pair (ny*nx, 2W)`` as
+``rays/raytrace.make_pair_table`` builds it (float32 or bfloat16) and
+``st (5, N)`` f32 = [x y k l sign], find each packet's base cell and row
+themselves, as ``rays/raytrace._gather_patch_rows`` does, and give the same
+outputs. Their twins are that gather, the transpose and the first cut's
+twin: the ray path's computation on the CPU.
 """
 from __future__ import annotations
 
@@ -32,24 +43,30 @@ import torch
 from ..rays.patch import PATCH_SHAPES
 
 __all__ = ["RK4_STAGES", "RK4_B", "attempt_launches", "attempt_torch",
-           "fused_attempt", "fused_substep", "launches", "n_channels",
-           "reset_launches", "substep_cfg", "substep_torch"]
+           "first_cut_inputs", "fused_attempt", "fused_substep", "launches", "n_channels",
+           "reset_launches", "substep_cfg", "substep_torch", "table_attempt",
+           "table_attempt_launches", "table_attempt_torch", "table_launches",
+           "table_substep", "table_substep_torch"]
 
 RK4_STAGES = ((0.0, ()), (0.5, (0.5,)), (0.5, (0.0, 0.5)),
               (1.0, (0.0, 0.0, 1.0)))
 RK4_B = (1 / 6, 1 / 3, 1 / 3, 1 / 6)
 
 _INTERP_ID = {"bilinear": 0, "bspline": 1, "bicubic": 2}
+_TABLE_DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
 
-# kernel launches per interp, counted by fused_substep (launches) and
-# fused_attempt (attempt_launches) where they launch their CUDA kernel and
-# nowhere else (the CPU twin path does not count)
+# kernel launches per interp, each counted by its wrapper where it launches
+# its CUDA kernel and nowhere else (the CPU twin path does not count):
+# fused_substep (launches), fused_attempt (attempt_launches), table_substep
+# (table_launches), table_attempt (table_attempt_launches)
 launches = {name: 0 for name in _INTERP_ID}
 attempt_launches = {name: 0 for name in _INTERP_ID}
+table_launches = {name: 0 for name in _INTERP_ID}
+table_attempt_launches = {name: 0 for name in _INTERP_ID}
 
 
 def reset_launches() -> None:
-    for counts in (launches, attempt_launches):
+    for counts in (launches, attempt_launches, table_launches, table_attempt_launches):
         for name in counts:
             counts[name] = 0
 
@@ -288,16 +305,46 @@ def attempt_torch(rows_T, st, scal, *, cfg, interp, x0, y0):
     return torch.stack([x5 + shx, y5 + shy, k5, l5, esum])
 
 
-# --- the kernel wrapper ------------------------------------------------------
+def first_cut_inputs(T_pair, st, rp, ny: int, nx: int):
+    """What the first cut takes for the packets of ``st (5, N)``, made as
+    the ray path made it before the table kernels: the row gather and
+    upcast, the transpose -> rows_T ``(2W, N)`` f32, and ``st (7, N)``."""
+    from ..rays.packets import Packets
+    from ..rays.raytrace import _gather_patch_rows
 
-def _kernel_fn(name: str, n_floats: int):
-    """The C entry point ``name`` of the kernels' library: (interp, rows_T,
-    st, scal, out, n, ``n_floats`` float constants, stream) -> cudaError_t."""
+    rows, bx, by = _gather_patch_rows(T_pair, Packets(*st.unbind(0)), rp, ny, nx)
+    return rows.t().contiguous(), torch.cat([st, torch.stack([bx, by])])
+
+
+def table_substep_torch(T_pair, st, scal, *, rp, interp, da, ny, nx):
+    """Plain PyTorch twin of the table substep kernel: the row gather, the
+    transpose and ``substep_torch``."""
+    rows_T, st7 = first_cut_inputs(T_pair, st, rp, ny, nx)
+    return substep_torch(rows_T, st7, scal, cfg=substep_cfg(rp, interp), interp=interp,
+                         da=da, x0=rp.x0, y0=rp.y0)
+
+
+def table_attempt_torch(T_pair, st, scal, *, rp, interp, ny, nx):
+    """Plain PyTorch twin of the table attempt kernel: the row gather, the
+    transpose and ``attempt_torch``."""
+    rows_T, st7 = first_cut_inputs(T_pair, st, rp, ny, nx)
+    return attempt_torch(rows_T, st7, scal, cfg=substep_cfg(rp, interp), interp=interp,
+                         x0=rp.x0, y0=rp.y0)
+
+
+# --- the kernel wrappers -----------------------------------------------------
+
+_F32 = (torch.float32,)
+
+
+def _kernel_fn(name: str, head: list, n_floats: int):
+    """The C entry point ``name`` of the kernels' library: (``head``, st,
+    scal, out, n, ``n_floats`` float constants, stream) -> cudaError_t."""
     from ._build import load_library
 
     fn = getattr(load_library(), name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_longlong]
+        fn.argtypes = (head + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
                        + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -309,31 +356,35 @@ def substep_cfg(rp, interp: str) -> tuple:
     return (ph, pw, lo, n_channels(interp) * ph * pw, rp.dx, rp.dy, rp.f, rp.Cg)
 
 
-def _runs_on_cpu(rows_T, st, scal, *, interp: str, n_scal: int, name: str) -> bool:
-    """Validate a fused kernel's inputs: True when they lie on the CPU (the
-    twin's case), False on the card (the kernel's case); raise otherwise."""
+def _pair_width(interp: str) -> int:
     if interp not in _INTERP_ID:
         raise ValueError(f"unsupported fused interp {interp!r}; "
                          f"available: {sorted(_INTERP_ID)}")
     ph, pw, _ = PATCH_SHAPES[interp]
-    W = n_channels(interp) * ph * pw
-    n = st.shape[-1]
-    for arg, t, shape in (("rows_T", rows_T, (2 * W, n)), ("st", st, (7, n)),
-                          ("scal", scal, (n_scal,))):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{arg} must be float32, got {t.dtype}")
+    return 2 * n_channels(interp) * ph * pw
+
+
+def _runs_on_cpu(specs, *, name: str) -> bool:
+    """Validate a kernel's inputs, ``specs`` = (arg, tensor, shape, dtypes)
+    with the device-setting tensor first: True when they lie on the CPU
+    (the twin's case), False on the card (the kernel's case); raise
+    otherwise."""
+    ref_arg, ref = specs[0][:2]
+    for arg, t, shape, dtypes in specs:
+        if t.dtype not in dtypes:
+            names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise TypeError(f"{arg} must be {names}, got {t.dtype}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{arg} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{arg} must be contiguous")
-        if t.device != rows_T.device:
-            raise ValueError(f"{arg} is on {t.device}, rows_T on {rows_T.device}")
-    if rows_T.device.type == "cpu":
+        if t.device != ref.device:
+            raise ValueError(f"{arg} is on {t.device}, {ref_arg} on {ref.device}")
+    if ref.device.type == "cpu":
         return True
-    if rows_T.device.type != "cuda":
-        raise RuntimeError(f"{name} runs on CPU or CUDA tensors, "
-                           f"not {rows_T.device.type}")
-    if rows_T.requires_grad or st.requires_grad or scal.requires_grad:
+    if ref.device.type != "cuda":
+        raise RuntimeError(f"{name} runs on CPU or CUDA tensors, not {ref.device.type}")
+    if any(t.requires_grad for _, t, _, _ in specs):
         raise NotImplementedError(
             f"the CUDA {name} has no backward (the substep's is ROADMAP queue 1, "
             "item 14: autograd.Function around the kernel; the attempt is "
@@ -341,45 +392,113 @@ def _runs_on_cpu(rows_T, st, scal, *, interp: str, n_scal: int, name: str) -> bo
     return False
 
 
-def _launch(fn, interp, rows_T, st, scal, out, floats) -> None:
-    f32 = ctypes.c_float
-    with torch.cuda.device(rows_T.device):
+def _fused_specs(rows_T, st, scal, interp: str, n_scal: int):
+    n = st.shape[-1]
+    return (("rows_T", rows_T, (_pair_width(interp), n), _F32),
+            ("st", st, (7, n), _F32), ("scal", scal, (n_scal,), _F32))
+
+
+def _table_specs(T_pair, st, scal, interp: str, n_scal: int, ny: int, nx: int):
+    n = st.shape[-1]
+    return (("T_pair", T_pair, (ny * nx, _pair_width(interp)), tuple(_TABLE_DTYPE_ID)),
+            ("st", st, (5, n), _F32), ("scal", scal, (n_scal,), _F32))
+
+
+def _launch(fn, args, st, scal, out, floats) -> None:
+    with torch.cuda.device(st.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(_INTERP_ID[interp], rows_T.data_ptr(), st.data_ptr(), scal.data_ptr(),
-                 out.data_ptr(), st.shape[-1], *map(f32, floats), stream)
+        err = fn(*args, st.data_ptr(), scal.data_ptr(), out.data_ptr(), st.shape[-1],
+                 *map(ctypes.c_float, floats), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError_t {err}")
 
 
+def _table_args(interp, T_pair, ny, nx) -> tuple:
+    """(interp, dtype id, T_pair, ny, nx) of a table kernel. The kernel loads
+    rows in 16-byte chunks: the table must start on a 16-byte boundary (every
+    row width is a multiple of 16 bytes)."""
+    if T_pair.data_ptr() % 16 or T_pair.shape[1] * T_pair.element_size() % 16:
+        raise ValueError("T_pair's rows must start on 16-byte boundaries for the "
+                         "kernel's 16-byte loads")
+    return (_INTERP_ID[interp], _TABLE_DTYPE_ID[T_pair.dtype], T_pair.data_ptr(), ny, nx)
+
+
+_FUSED_HEAD = [ctypes.c_int, ctypes.c_void_p]
+_TABLE_HEAD = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+
+
+def _substep_floats(rp, da) -> tuple:
+    return (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg, 0.5 * da, 1.0 * da,
+            RK4_B[0], RK4_B[1])
+
+
+def _attempt_floats(rp) -> tuple:
+    return (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg)
+
+
 def fused_substep(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
                   rp, interp: str, da: float) -> torch.Tensor:
-    """One fused RK4 substep: ``(2W, N), (7, N), (2,) -> (4, N)``.
+    """One fused RK4 substep, the first cut: ``(2W, N), (7, N), (2,) -> (4, N)``.
 
     CUDA tensors go through the hand-written kernel (and count one launch);
     CPU tensors go through the plain twin. Anything else raises."""
-    if _runs_on_cpu(rows_T, st, scal, interp=interp, n_scal=2, name="fused substep"):
+    if _runs_on_cpu(_fused_specs(rows_T, st, scal, interp, 2), name="fused substep"):
         return substep_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
                              interp=interp, da=da, x0=rp.x0, y0=rp.y0)
-    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=rows_T.device)
-    _launch(_kernel_fn("jrsw_ray_step", 10), interp, rows_T, st, scal, out,
-            (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg, 0.5 * da,
-             1.0 * da, RK4_B[0], RK4_B[1]))
+    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
+    _launch(_kernel_fn("jrsw_ray_step", _FUSED_HEAD, 10),
+            (_INTERP_ID[interp], rows_T.data_ptr()), st, scal, out, _substep_floats(rp, da))
     launches[interp] += 1
     return out
 
 
 def fused_attempt(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
                   rp, interp: str) -> torch.Tensor:
-    """One fused embedded DP5(4) attempt: ``(2W, N), (7, N), (5,) -> (5, N)``.
+    """One fused embedded DP5(4) attempt, the first cut:
+    ``(2W, N), (7, N), (5,) -> (5, N)``.
 
     Forward only. CUDA tensors go through the hand-written kernel (and
     count one attempt launch); CPU tensors go through the plain twin.
     Anything else raises."""
-    if _runs_on_cpu(rows_T, st, scal, interp=interp, n_scal=5, name="fused attempt"):
+    if _runs_on_cpu(_fused_specs(rows_T, st, scal, interp, 5), name="fused attempt"):
         return attempt_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
                              interp=interp, x0=rp.x0, y0=rp.y0)
-    out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=rows_T.device)
-    _launch(_kernel_fn("jrsw_ray_attempt", 6), interp, rows_T, st, scal, out,
-            (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg))
+    out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=st.device)
+    _launch(_kernel_fn("jrsw_ray_attempt", _FUSED_HEAD, 6),
+            (_INTERP_ID[interp], rows_T.data_ptr()), st, scal, out, _attempt_floats(rp))
     attempt_launches[interp] += 1
+    return out
+
+
+def table_substep(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
+                  rp, interp: str, da: float, ny: int, nx: int) -> torch.Tensor:
+    """One fused RK4 substep reading the pair table itself:
+    ``(ny*nx, 2W) f32|bf16, (5, N), (2,) -> (4, N)``.
+
+    CUDA tensors go through the hand-written kernel (and count one table
+    launch); CPU tensors go through the plain twin. Anything else raises."""
+    if _runs_on_cpu(_table_specs(T_pair, st, scal, interp, 2, ny, nx), name="table substep"):
+        return table_substep_torch(T_pair, st, scal, rp=rp, interp=interp, da=da, ny=ny,
+                                   nx=nx)
+    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
+    _launch(_kernel_fn("jrsw_ray_step_table", _TABLE_HEAD, 10),
+            _table_args(interp, T_pair, ny, nx), st, scal, out, _substep_floats(rp, da))
+    table_launches[interp] += 1
+    return out
+
+
+def table_attempt(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
+                  rp, interp: str, ny: int, nx: int) -> torch.Tensor:
+    """One fused embedded DP5(4) attempt reading the pair table itself:
+    ``(ny*nx, 2W) f32|bf16, (5, N), (5,) -> (5, N)``.
+
+    Forward only. CUDA tensors go through the hand-written kernel (and
+    count one table attempt launch); CPU tensors go through the plain twin.
+    Anything else raises."""
+    if _runs_on_cpu(_table_specs(T_pair, st, scal, interp, 5, ny, nx), name="table attempt"):
+        return table_attempt_torch(T_pair, st, scal, rp=rp, interp=interp, ny=ny, nx=nx)
+    out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=st.device)
+    _launch(_kernel_fn("jrsw_ray_attempt_table", _TABLE_HEAD, 6),
+            _table_args(interp, T_pair, ny, nx), st, scal, out, _attempt_floats(rp))
+    table_attempt_launches[interp] += 1
     return out

@@ -2,8 +2,8 @@
 (port of ``benchmarks/profiling/prof_pallas_probe.py``)
 
 Stage 1: an elementwise ``2x + 1`` on (256, 256), the copy kernel's plain
-mode. Stages 2-3: the ray path's ``raytrace_tables`` through the fused RK4
-substep kernel at 65,536 and 1,048,576 packets, over the pair table of two
+mode. Stages 2-3: the ray path's ``raytrace_tables`` through the RK4 table
+kernel (which reads the pair table itself) at 65,536 and 1,048,576 packets, over the pair table of two
 white-noise 512^2 bilinear field stacks (seed 0), one substep of 1e-3.
 The 65,536-packet stage is held against the same call on the CPU, which
 runs the kernel's plain version.
@@ -71,7 +71,7 @@ def run(device, card: str) -> list[Result]:
             for g, r in zip(got, ref):
                 torch.testing.assert_close(g.cpu(), r, rtol=RTOL, atol=ATOL)
         ms = time_ms(lambda: _substep(p, T_pair, rp))
-        res = Result(f"stage {stage}: raytrace_tables, fused RK4 substep, N={n}", None, ms, n,
+        res = Result(f"stage {stage}: raytrace_tables, RK4 table kernel, N={n}", None, ms, n,
                      n * BYTES_PER_PACKET, max_abs_err=err)
         held = (f"; GPU vs CPU max |difference| {err:.3e} (rtol {RTOL}, atol {ATOL})"
                 if err is not None else "")

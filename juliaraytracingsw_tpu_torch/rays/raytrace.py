@@ -22,13 +22,13 @@ Two gather strategies, chosen by ``RayParams.gather``:
 Integrators:
 
 - ``raytrace_tables`` / ``raytrace``: fixed steps. RK4 on the patch path
-  runs the fused substep (``ops/ray_step.fused_substep``: the CUDA kernel
-  on the card, its twin on the CPU); DP5 and the taps path run the
-  per-stage ``_step``.
+  runs the fused substep over the pair table (``ops/ray_step.table_substep``:
+  the CUDA kernel on the card, which reads the table rows itself; its twin
+  on the CPU); DP5 and the taps path run the per-stage ``_step``.
 - ``raytrace_adaptive``: embedded Dormand-Prince 5(4) or Fehlberg 7(8)
   with one shared step size. With the patch gather, pair 'dopri5' and
-  loop 'while' each attempt is the fused attempt
-  (``ops/ray_step.fused_attempt``); every other combination runs the
+  loop 'while' each attempt is the fused attempt over the pair table
+  (``ops/ray_step.table_attempt``); every other combination runs the
   per-stage attempt.
 
 Not ported: implicit midpoint and ``gather='auto'`` (ROADMAP queue 1,
@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.spectral import irfft2, spectral_gradients
-from ..ops.ray_step import fused_attempt, fused_substep
+from ..ops.ray_step import table_attempt, table_substep
 from .dispersion import group_velocity
 from .interp import bspline_prefilter_mask, interpolate
 from .packets import Packets
@@ -152,12 +152,22 @@ def _make_taps_sampler(fields_old, fields_new, rp: RayParams):
     return sample
 
 
+def _cell_floor(v, origin: float, step: float):
+    """floor((v - origin) / step) in IEEE float32, origin and step each
+    rounded once to float32. The divisor is a tensor on v's device: PyTorch
+    on CUDA divides by a Python scalar as a product with its float32
+    reciprocal, which can differ by an ulp and, at a cell face, by a cell."""
+    return torch.floor((v - origin) / torch.full((), step, dtype=torch.float32,
+                                                 device=v.device))
+
+
 def _gather_patch_rows(T_pair, p: Packets, rp: RayParams, ny: int, nx: int):
     """One row gather (both time levels) at the packets' base cells ->
     (rows f32 (N, 2W), bx, by). Positions are never wrapped; only the cell
-    index is, with the sign rule of ``remainder``."""
-    bx = torch.floor((p.x - rp.x0) / rp.dx)
-    by = torch.floor((p.y - rp.y0) / rp.dy)
+    index is, with the sign rule of ``remainder``. The table kernels
+    (``ops/ray_step.table_substep``, ``table_attempt``) find the same rows."""
+    bx = _cell_floor(p.x, rp.x0, rp.dx)
+    by = _cell_floor(p.y, rp.y0, rp.dy)
     cell = (torch.remainder(by.to(torch.int32), ny) * nx
             + torch.remainder(bx.to(torch.int32), nx))
     rows = T_pair.index_select(0, cell).float()
@@ -312,8 +322,8 @@ def raytrace_tables(
 ) -> Packets:
     """Advance packets from t0 to t1 through a pre-built (old|new) pair
     table in ``nsubsteps`` fixed substeps. ``t0``/``t1`` are 0-d float32
-    tensors (or floats) on the packets' device. RK4 runs the fused substep;
-    DP5 runs the per-stage path."""
+    tensors (or floats) on the packets' device. RK4 runs the fused substep
+    over the pair table; DP5 runs the per-stage path."""
     check_ray_params(rp)
     dev = packets.x.device
     t0 = _as_time(t0, dev)
@@ -325,10 +335,9 @@ def raytrace_tables(
         # a float32 product, as the reference's traced i * da
         a0 = torch.full((), float(i), dtype=torch.float32, device=dev) * da
         if method == "rk4":
-            rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
-            st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
-            out = fused_substep(rows.t().contiguous(), st, torch.stack([a0, h]), rp=rp,
-                                interp=rp.interp, da=da)
+            st = torch.stack([p.x, p.y, p.k, p.l, p.sign])
+            out = table_substep(T_pair, st, torch.stack([a0, h]), rp=rp, interp=rp.interp,
+                                da=da, ny=ny, nx=nx)
             p = Packets(out[0], out[1], out[2], out[3], p.sign)
         else:
             p = _step(p, _make_patch_sampler(T_pair, p, rp, ny, nx), a0, da, h, rp, method)
@@ -400,7 +409,8 @@ def raytrace_adaptive(
     whole batch: Dormand-Prince 5(4) (``pair='dopri5'``) or Fehlberg 7(8)
     (``'rkf78'``). Hairer's mixed error norm over all packets, step factor
     0.9 (1/err)^(1/(q+1)) clipped to [0.2, 5]; a rejected attempt shrinks h
-    and retries from the same positions, reusing the rows it gathered.
+    and retries from the same positions (the per-stage attempt reusing the
+    rows it gathered; the fused one reads them from the table again).
 
     ``loop='scan'`` runs exactly ``max_steps`` attempt slots, the finished
     ones masked, and never waits on the device; ``loop='while'`` stops once
@@ -408,10 +418,11 @@ def raytrace_adaptive(
     before the first attempt and after each one.
 
     The patch gather with ``'dopri5'`` and ``'while'`` runs each attempt
-    through ``fused_attempt`` (the CUDA kernel on the card, its twin on the
-    CPU), which scales the error by patch-local positions; every other
-    combination runs the per-stage attempt, which scales it by global
-    positions, as the reference does in each case.
+    through ``table_attempt`` (the CUDA kernel on the card, which reads the
+    pair table itself; its twin on the CPU), which scales the error by
+    patch-local positions; every other combination runs the per-stage
+    attempt, which scales it by global positions, as the reference does in
+    each case.
 
     Returns ``(packets, info)``, info = dict of 0-d tensors ``t_reached``,
     ``h_final``, ``n_accepted``, ``n_rejected``; ``t_reached < t1`` means
@@ -462,15 +473,15 @@ def raytrace_adaptive(
 
     def body(p, t, h, gathered):
         """One attempt slot -> (p, t, h, accept, reject); ``gathered`` holds
-        the rows of the packets' current positions (None on the taps path)."""
+        the rows of the packets' current positions (None on the taps path
+        and for the fused attempt, which reads them itself)."""
         done = t >= t1 - eps
         h_eff = torch.minimum(h, t1 - t)
         h_att = torch.where(done, h, h_eff)
         if fused:
-            rows_T, bx, by = gathered
-            st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
+            st = torch.stack([p.x, p.y, p.k, p.l, p.sign])
             scal = torch.cat([torch.stack([(t - t0) / span, h_att / span, h_att]), tols])
-            out5 = fused_attempt(rows_T, st, scal, rp=rp, interp=rp.interp)
+            out5 = table_attempt(T_pair, st, scal, rp=rp, interp=rp.interp, ny=ny, nx=nx)
             p5 = Packets(out5[0], out5[1], out5[2], out5[3], p.sign)
             err = err_norm(torch.sum(out5[4]))
         else:
@@ -486,21 +497,17 @@ def raytrace_adaptive(
         h_next = torch.where(done, h, torch.maximum(h_eff * fac, eps))
         return p_next, t_next, h_next, accept, reject
 
-    def gather(p):
-        rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
-        # the kernel path carries the transposed rows, so a rejected
-        # attempt pays neither the gather nor the transpose again
-        return (rows.t().contiguous() if fused else rows), bx, by
-
     p, t, h = packets, t0, span / init_substeps
     nacc = torch.zeros((), dtype=torch.int32, device=dev)
     nrej = torch.zeros((), dtype=torch.int32, device=dev)
+    gathers = use_patch and not fused
     if loop == "scan":
         # max_steps slots, none waiting on the device: once the clock has
         # reached t1 a slot is a no-op (nothing moves, nothing is counted),
         # and each slot gathers the rows of the packets' current positions
         for _ in range(max_steps):
-            p, t, h, accept, reject = body(p, t, h, gather(p) if use_patch else None)
+            gathered = _gather_patch_rows(T_pair, p, rp, ny, nx) if gathers else None
+            p, t, h, accept, reject = body(p, t, h, gathered)
             nacc = nacc + accept.to(torch.int32)
             nrej = nrej + reject.to(torch.int32)
         return p, dict(t_reached=t, h_final=h, n_accepted=nacc, n_rejected=nrej)
@@ -509,8 +516,8 @@ def raytrace_adaptive(
     # (then their rows are gathered anew; a rejected slot reuses them)
     go, slots, gathered = bool(t < t1 - eps), 0, None
     while go and slots < max_steps:
-        if use_patch and gathered is None:
-            gathered = gather(p)
+        if gathers and gathered is None:
+            gathered = _gather_patch_rows(T_pair, p, rp, ny, nx)
         p, t, h, accept, reject = body(p, t, h, gathered)
         nacc = nacc + accept.to(torch.int32)
         nrej = nrej + reject.to(torch.int32)

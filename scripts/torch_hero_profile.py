@@ -6,12 +6,16 @@
 Builds the hero of ``chip_smoke.py`` (512^2 RSW + 1,048,576 packets,
 bfloat16 patch tables) with the PyTorch port and prints:
 
-1. the time of each stage of one coupled step, taken apart by hand and
-   timed with CUDA events (``_timing.time_ms``: the median of 3 timings of
-   10 calls each, called from Python, host work included), among them the
-   fused RK4 substep and the fused DP5(4) attempt, and one whole adaptive
+1. the time of each stage of one coupled step as the card runs it, taken
+   apart by hand and timed with CUDA events (``_timing.time_ms``: the
+   median of 3 timings of 10 calls each, called from Python, host work
+   included), among them the RK4 table kernel and the DP5(4) table attempt
+   kernel, which read the pair table themselves; the sum of the stages of
+   an RK4 step and of an adaptive step of one attempt; one whole adaptive
    interval (``raytrace_adaptive`` at the adaptive hero's options, its
-   pair-table build and its wait on the device included);
+   pair-table build and its wait on the device included); and, for
+   comparison, the first-cut path the table kernels replaced (row gather
+   and upcast, transpose, first-cut kernel);
 2. one frame of 5 coupled steps through ``make_coupled_frame`` with the
    RK4 or the adaptive ray method under ``torch.profiler``: device time by
    kernel name, and the device's busy share of the frame's wall time
@@ -35,7 +39,8 @@ from juliaraytracingsw_tpu_torch.core.steppers import zero_clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled.driver import (  # noqa: E402
     SimState, make_coupled_frame)
 from juliaraytracingsw_tpu_torch.models.base import build_stepper  # noqa: E402
-from juliaraytracingsw_tpu_torch.ops.ray_step import fused_attempt, fused_substep  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops.ray_step import (  # noqa: E402
+    first_cut_inputs, fused_attempt, fused_substep, table_attempt, table_substep)
 from juliaraytracingsw_tpu_torch.profiling._timing import card_line, time_ms  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.patch import build_patch_table  # noqa: E402
@@ -54,38 +59,54 @@ def stages(interp: str, device) -> None:
     fields = fields_from_psih(psih_fn(sol), grid, interp)
     T_old = T_new = build_patch_table(fields, interp)
     T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
-    rows, bx, by = _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)
-    rows_T = rows.t().contiguous()
-    st = torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by])
+    geo = dict(ny=grid.ny, nx=grid.nx)
+    st = torch.stack([p.x, p.y, p.k, p.l, p.sign])
     scal = torch.tensor([0.0, DT], device=device)
     scal5 = torch.tensor([0.0, 1.0, DT, HERO_ADAPTIVE["rtol"], HERO_ADAPTIVE["atol"]],
                          device=device)
-    parts = {
-        "flow step (IF-AB3 + RSW calcN)": lambda: step(sol, clock, ss),
-        "fields_from_psih": lambda: fields_from_psih(psih_fn(sol), grid, interp),
-        "build_patch_table": lambda: build_patch_table(fields, interp),
-        "make_pair_table (cat + bf16)": lambda: make_pair_table(T_old, T_new,
-                                                                rp.table_dtype),
-        "row gather (floor, index_select, .float())":
-            lambda: _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx),
-        "transpose rows -> rows_T": lambda: rows.t().contiguous(),
-        "stack st": lambda: torch.stack([p.x, p.y, p.k, p.l, p.sign, bx, by]),
-        "fused RK4 substep kernel": lambda: fused_substep(rows_T, st, scal, rp=rp,
-                                                          interp=interp, da=1.0),
-        "fused DP5(4) attempt kernel": lambda: fused_attempt(rows_T, st, scal5, rp=rp,
-                                                             interp=interp),
-        "k_cutoff_reset": lambda: k_cutoff_reset(p, K_CUTOFF, K0),
-    }
-    whole = ("raytrace_adaptive, one interval",
-             lambda: raytrace_adaptive(p, fields, fields, clock.t, clock.t + DT, rp,
-                                       **HERO_ADAPTIVE))
-    total = 0.0
-    for name, fn in parts.items():
+    # (name, fn, in the RK4 step, in an adaptive step of one attempt; the
+    # adaptive step builds both patch tables)
+    parts = [
+        ("flow step (IF-AB3 + RSW calcN)", lambda: step(sol, clock, ss), 1, 1),
+        ("fields_from_psih", lambda: fields_from_psih(psih_fn(sol), grid, interp), 1, 1),
+        ("build_patch_table", lambda: build_patch_table(fields, interp), 1, 2),
+        ("make_pair_table (cat + bf16)",
+         lambda: make_pair_table(T_old, T_new, rp.table_dtype), 1, 1),
+        ("stack st (5, N)", lambda: torch.stack([p.x, p.y, p.k, p.l, p.sign]), 1, 1),
+        ("RK4 table kernel (reads T_pair)",
+         lambda: table_substep(T_pair, st, scal, rp=rp, interp=interp, da=1.0, **geo), 1, 0),
+        ("DP5(4) table attempt kernel (reads T_pair)",
+         lambda: table_attempt(T_pair, st, scal5, rp=rp, interp=interp, **geo), 0, 1),
+        ("k_cutoff_reset", lambda: k_cutoff_reset(p, K_CUTOFF, K0), 1, 1),
+    ]
+    sums = [0.0, 0.0]
+    for name, fn, in_rk4, in_adaptive in parts:
         ms = time_ms(fn)
-        total += ms
+        sums[0] += in_rk4 * ms
+        sums[1] += in_adaptive * ms
         print(f"  {name:45s} {ms:8.3f} ms")
-    print(f"  {'sum of the stages':45s} {total:8.3f} ms")
-    print(f"  {whole[0]:45s} {time_ms(whole[1]):8.3f} ms")
+    print(f"  {'sum of the stages, RK4 step':45s} {sums[0]:8.3f} ms")
+    print(f"  {'sum of the stages, adaptive step (1 attempt)':45s} {sums[1]:8.3f} ms")
+    interval_ms = time_ms(lambda: raytrace_adaptive(p, fields, fields, clock.t, clock.t + DT,
+                                                    rp, **HERO_ADAPTIVE))
+    print(f"  {'raytrace_adaptive, one interval':45s} {interval_ms:8.3f} ms")
+
+    # the first-cut path the table kernels replaced, for comparison
+    rows, _, _ = _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)
+    rows_T, st7 = first_cut_inputs(T_pair, st, rp, **geo)
+    print("  replaced by the table kernels:")
+    for name, fn in (
+            ("row gather (floor, index_select, .float())",
+             lambda: _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)),
+            ("transpose rows -> rows_T", lambda: rows.t().contiguous()),
+            ("first-cut RK4 kernel (rows_T)",
+             lambda: fused_substep(rows_T, st7, scal, rp=rp, interp=interp, da=1.0)),
+            ("first-cut DP5(4) attempt kernel (rows_T)",
+             lambda: fused_attempt(rows_T, st7, scal5, rp=rp, interp=interp)),
+            ("first-cut RK4 path (gather to kernel)",
+             lambda: fused_substep(*first_cut_inputs(T_pair, st, rp, **geo), scal, rp=rp,
+                                   interp=interp, da=1.0))):
+        print(f"    {name:43s} {time_ms(fn):8.3f} ms")
 
 
 def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:

@@ -295,7 +295,7 @@ def test_raytrace_adaptive_empty_interval_matches_jax(loop, monkeypatch):
     if loop == "while":
         def no_attempt(*args, **kwargs):
             raise AssertionError("an attempt on an empty interval")
-        monkeypatch.setattr(trt, "fused_attempt", no_attempt)
+        monkeypatch.setattr(trt, "table_attempt", no_attempt)
     out_t, info_t = trt.raytrace_adaptive(pt, torch.as_tensor(fo), torch.as_tensor(fn), 0.1,
                                           0.1, _rp(trt, 16), **kw)
     out_j, info_j = jrt.raytrace_adaptive(pj, jnp.asarray(fo), jnp.asarray(fn), 0.1, 0.1,

@@ -1,5 +1,6 @@
-"""The fused RK4 substep and DP5(4) attempt kernels on an NVIDIA GPU,
-against their plain twins.
+"""The fused RK4 substep and DP5(4) attempt kernels on an NVIDIA GPU, in
+their first cut and their table form, against their plain twins, and the
+probe kernels against their plain versions.
 
 These tests need a CUDA device and ``nvcc``, and skip without one. They
 import neither JAX nor its package, so they also run where JAX is absent,
@@ -132,6 +133,129 @@ def test_attempt_kernel_refuses_what_it_cannot_do(cuda_device):
     before = dict(ray_step.attempt_launches)
     out = ray_step.fused_attempt(rows_T.cpu(), st.cpu(), scal.cpu(), **call)
     assert out.device.type == "cpu" and ray_step.attempt_launches == before
+
+
+# --- the table forms: the kernels read the pair table themselves -------------
+
+def _table_inputs(interp, table_dtype, device, n, nx=NX, seed=0):
+    """A pair table of smooth fields and st (5, N): packets over three
+    periods, every seventh one on a cell face (x0 + k dx rounded to float32)
+    or one ulp beside it, where the cell index is most easily got wrong."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(nx) * L / nx, np.arange(nx) * L / nx, indexing="ij")
+    nch = ray_step.n_channels(interp)
+    amp, kx, ky, ph = rng.uniform(0.1, 0.5, (4, 2, nch, 1, 1))
+    fo, fn = (torch.as_tensor((a * np.sin(np.rint(4 * i) * xx + np.rint(4 * j) * yy + 6 * p))
+                              .astype(np.float32), device=device)
+              for a, i, j, p in zip(amp, kx, ky, ph))
+    T_pair = make_pair_table(build_patch_table(fo, interp), build_patch_table(fn, interp),
+                             table_dtype)
+    rp = RayParams(f=3.0, Cg=1.0, x0=-L / 2, y0=-L / 2, dx=L / nx, dy=L / nx,
+                   interp=interp, table_dtype=table_dtype)
+    x, y = rng.uniform(-1.5 * L, 1.5 * L, (2, n)).astype(np.float32)
+    faces = (rp.x0 + rng.integers(-3 * nx, 3 * nx, n) * rp.dx).astype(np.float32)
+    faces = np.nextafter(faces, faces + rng.integers(-1, 2, n).astype(np.float32))
+    on_face = np.arange(n) % 7 == 3
+    x[on_face] = faces[on_face]
+    y[np.arange(n) % 7 == 5] = faces[np.arange(n) % 7 == 5]
+    phase = rng.uniform(0, 2 * np.pi, n)
+    sign = np.where(np.arange(n) % 2 == 0, -1.0, 1.0)
+    st = torch.as_tensor(np.stack([x, y, 5.2 * np.cos(phase), 5.2 * np.sin(phase), sign])
+                         .astype(np.float32), device=device)
+    return T_pair, st, rp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_table_kernel_matches_twin(interp, table_dtype, n, cuda_device):
+    """The table substep against its twin, and bit-equal to the first cut
+    on the rows the ray path gathers (the bf16 upcast is exact, the stage
+    code is the same). N = 33 and 4,099 leave a ragged last warp and block."""
+    T_pair, st, rp = _table_inputs(interp, table_dtype, cuda_device, n)
+    scal = torch.tensor([0.25, 2e-3], device=cuda_device)
+    call = dict(rp=rp, interp=interp, da=0.5)
+    before = ray_step.table_launches[interp]
+    out = ray_step.table_substep(T_pair, st, scal, ny=NX, nx=NX, **call)
+    torch.cuda.synchronize()
+    assert ray_step.table_launches[interp] == before + 1
+    twin = ray_step.table_substep_torch(T_pair, st, scal, ny=NX, nx=NX, **call)
+    torch.testing.assert_close(out, twin, rtol=1e-5, atol=1e-6)
+    first = ray_step.fused_substep(*ray_step.first_cut_inputs(T_pair, st, rp, NX, NX), scal,
+                                   **call)
+    assert torch.equal(out, first)
+    assert float((out[:2] - st[:2]).abs().max()) > 1e-4      # packets moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_table_attempt_kernel_matches_twin(interp, table_dtype, n, cuda_device):
+    """The table attempt at h = 0.4 on a 16^2 grid, as the first cut's test:
+    rows 0-3 and the error row against the twin, everything bit-equal to
+    the first cut on the same rows."""
+    T_pair, st, rp = _table_inputs(interp, table_dtype, cuda_device, n, nx=16)
+    scal = _attempt_scal(cuda_device)
+    call = dict(rp=rp, interp=interp)
+    before = ray_step.table_attempt_launches[interp]
+    out = ray_step.table_attempt(T_pair, st, scal, ny=16, nx=16, **call)
+    torch.cuda.synchronize()
+    assert ray_step.table_attempt_launches[interp] == before + 1
+    twin = ray_step.table_attempt_torch(T_pair, st, scal, ny=16, nx=16, **call)
+    # at h = 0.4 a stage slope dk/dt reaches ~10, so FMA contraction moves a
+    # wavenumber near zero by a few ulps of h dk/dt (1.7e-6 seen on one
+    # bicubic packet of 4,099, the first cut alike): atol 5e-6
+    torch.testing.assert_close(out[:4], twin[:4], rtol=1e-5, atol=5e-6)
+    esum_max = float(twin[4].max())
+    assert esum_max > 0
+    torch.testing.assert_close(out[4], twin[4], rtol=2e-2, atol=2e-5 * esum_max)
+    first = ray_step.fused_attempt(*ray_step.first_cut_inputs(T_pair, st, rp, 16, 16), scal,
+                                   **call)
+    assert torch.equal(out, first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["substep", "attempt"])
+def test_table_kernels_refuse_what_they_cannot_do(kind, cuda_device):
+    """Bad dtype, width, row count, contiguity, device (the table on another
+    device), gradients, a table off a 16-byte boundary; CPU tensors run the
+    twin and count nothing."""
+    T_pair, st, rp = _table_inputs("bilinear", "bfloat16", cuda_device, 64)
+    if kind == "substep":
+        scal = torch.tensor([0.0, 1e-3], device=cuda_device)
+
+        def call(T, s=st, sc=scal):
+            return ray_step.table_substep(T, s, sc, rp=rp, interp="bilinear", da=1.0, ny=NX,
+                                          nx=NX)
+        counts = ray_step.table_launches
+    else:
+        scal = _attempt_scal(cuda_device)
+
+        def call(T, s=st, sc=scal):
+            return ray_step.table_attempt(T, s, sc, rp=rp, interp="bilinear", ny=NX, nx=NX)
+        counts = ray_step.table_attempt_launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        call(T_pair.half())
+    with pytest.raises(ValueError, match="shape"):
+        call(T_pair[:, :-8].contiguous())
+    with pytest.raises(ValueError, match="shape"):
+        call(T_pair[:-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(T_pair.t().contiguous().t())
+    with pytest.raises(ValueError, match="is on"):
+        call(T_pair.cpu())
+    with pytest.raises(ValueError, match="is on"):
+        call(T_pair, sc=scal.cpu())
+    with pytest.raises(NotImplementedError, match="backward"):
+        call(T_pair, s=st.clone().requires_grad_())
+    shifted = torch.empty(T_pair.numel() + 1, dtype=T_pair.dtype, device=cuda_device)[1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        call(shifted.view(T_pair.shape))
+    before = dict(counts)
+    out = call(T_pair.cpu(), s=st.cpu(), sc=scal.cpu())
+    assert out.device.type == "cpu" and counts == before
 
 
 # --- the copy and gather probe kernels (ops/probes.py) ------------------------
