@@ -61,11 +61,30 @@ __device__ __forceinline__ void bulk_load(void* dst_smem, const void* src, uint3
       : "memory");
 }
 
-// order this thread's (and, after a __syncwarp, its warp's) earlier reads
-// of shared memory before the bulk copies it starts next: a slot is read
-// out by ordinary loads, then refilled by the copy engine
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+// shared memory -> device memory, in this thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, const void* src_smem, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_addr(src_smem)), "r"(bytes)
+               : "memory");
+}
+
+// close this thread's current bulk group (the bulk stores started since the
+// last commit)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed bulk groups still read
+// their shared-memory source: after it, the older groups' slots may be
+// overwritten (their writes to device memory may still be in flight)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until every committed bulk group of this thread has completed
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 }  // namespace jrsw_probe

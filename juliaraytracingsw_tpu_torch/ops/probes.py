@@ -5,9 +5,10 @@ Four hand-written CUDA kernels, each beside its plain PyTorch version:
 
 - ``staged_copy`` launches ``csrc/probe_copy.cu``: ``a * x[rows] + b`` with
   the rows brought into shared memory by one or more bulk copies (TMA) on
-  mbarriers, or read straight from device memory. Plain version:
-  ``staged_copy_torch``. ``COPY_PROBES`` names the Pallas kernel each
-  schedule replaces.
+  mbarriers, every copy cut into slices that as many blocks start side by
+  side (``copy_slices``), or read straight from device memory. Plain
+  version: ``staged_copy_torch``. ``COPY_PROBES`` names the Pallas kernel
+  each schedule replaces.
 - ``gather_elems`` launches ``gather_elems`` of ``csrc/probe_gather.cu``: a
   flat element gather or ``torch.gather`` along axis 0 or 1. Plain version:
   ``gather_elems_torch``.
@@ -15,8 +16,9 @@ Four hand-written CUDA kernels, each beside its plain PyTorch version:
   row gather, one warp per row, optionally rounded through bfloat16 or
   upcast from it. Plain version: ``gather_rows_torch``.
 - ``row_ring`` launches ``csrc/probe_row_ring.cu``: one bulk copy per row
-  (or per Q rows), K in flight through shared memory, every copy's rows
-  written out in issue order. Plain version: ``row_ring_torch``.
+  (or per Q rows), the copies cut into chunks, one per ring of K in flight
+  (``ring_plan``), rings on every SM, each copy written back by a bulk
+  store in issue order. Plain version: ``row_ring_torch``.
 
 A wrapper runs the plain version for tensors on the CPU and the kernel for
 tensors on the card, where it adds one to ``launches[name]``; anything else
@@ -31,16 +33,18 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["COPY_PROBES", "CopySchedule", "RING_OFFSET", "RING_STRIDE", "gather_elems",
+__all__ = ["COPY_PROBES", "COPY_SLICE_MIN", "CopySchedule", "RING_ISSUERS_PER_SM",
+           "RING_OFFSET", "RING_STRIDE", "RingPlan", "copy_slices", "gather_elems",
            "gather_elems_torch", "gather_rows", "gather_rows_torch", "launches",
-           "reset_launches", "ring_rows", "row_ring", "row_ring_torch", "staged_copy",
-           "staged_copy_torch"]
+           "reset_launches", "ring_bytes", "ring_plan", "ring_rows", "row_ring",
+           "row_ring_torch", "staged_copy", "staged_copy_torch"]
 
 # kernel launches, counted by each wrapper where it launches its CUDA kernel
 # and nowhere else (the CPU path does not count)
 launches = {"probe_copy": 0, "gather_elems": 0, "gather_rows": 0, "row_ring": 0}
 
 SMEM_LIMIT = 232_448          # bytes of shared memory a block may have on Hopper
+INT32_MAX = 2 ** 31 - 1
 RING_STRIDE, RING_OFFSET = 40503, 12345   # the scripts' synthetic row walk
 
 
@@ -89,6 +93,14 @@ def _check_dtype(name: str, arg: str, t: torch.Tensor, *dtypes) -> None:
         raise TypeError(f"{name}: {arg} must be {' or '.join(map(str, dtypes))}, got {t.dtype}")
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _up(v: int, m: int) -> int:
+    return _cdiv(v, m) * m
+
+
 # --- A: staged affine copy ---------------------------------------------------
 
 @dataclass(frozen=True)
@@ -133,6 +145,24 @@ COPY_PROBES = {
 }
 
 
+# bytes: the least slice of a copy one block starts (slices of 256 B to 4 KB
+# time alike, scripts/torch_probe_sweeps.py; PERF.md)
+COPY_SLICE_MIN = 2048
+
+
+def copy_slices(copy_bytes: int) -> tuple[int, int]:
+    """How the staged kernel cuts a copy of ``copy_bytes`` (a multiple of 16)
+    across blocks: ``(slice_bytes, n_slices)``, block s starting bytes
+    ``[s slice_bytes, (s + 1) slice_bytes)`` of every copy and the last block
+    the rest, ``[(n_slices - 1) slice_bytes, copy_bytes)``. Slices are
+    multiples of 16 bytes, at least ``COPY_SLICE_MIN`` where the copy is, and
+    the last one is the longest, by less than ``n_slices`` times 16 bytes."""
+    if copy_bytes < 16 or copy_bytes % 16:
+        raise ValueError(f"a bulk copy moves a positive multiple of 16 bytes, not {copy_bytes}")
+    n_slices = max(1, copy_bytes // COPY_SLICE_MIN)
+    return copy_bytes // 16 // n_slices * 16, n_slices
+
+
 def staged_copy_torch(x: torch.Tensor, sched: CopySchedule, a: float, b: float) -> torch.Tensor:
     """Plain version: ``x[rows] * a + b``, the rows computed on x's device
     (no host-to-device copy, so a CUDA graph can capture it)."""
@@ -152,32 +182,40 @@ def staged_copy(x: torch.Tensor, sched: CopySchedule, a: float, b: float) -> tor
     if x.ndim != 2:
         raise ValueError(f"{name}: x must be 2-D, got shape {tuple(x.shape)}")
     R, W = x.shape
-    if max((i * sched.q) % sched.wrap for i in range(sched.n_copies)) + sched.q > R:
+    starts = {(i * sched.q) % sched.wrap for i in range(sched.n_copies)}
+    if max(starts) + sched.q > R:
         raise ValueError(f"{name}: the schedule reads rows outside x's {R}")
     if not 1 <= sched.in_flight <= 32:
         raise ValueError(f"{name}: 1 to 32 copies in flight, not {sched.in_flight}")
     if sched.in_flight > sched.n_slots and sched.n_copies > sched.n_slots:
         raise ValueError(f"{name}: {sched.in_flight} copies in flight would overwrite "
                          f"one of {sched.n_slots} slots before it lands")
+    if sched.n_copies * sched.q > INT32_MAX or sched.n_slots * sched.q * W > INT32_MAX:
+        raise ValueError(f"{name}: the kernel indexes rows in 32-bit arithmetic")
     if _on_cpu(name, x):
         return staged_copy_torch(x, sched, a, b)
+    copy_bytes = sched.q * W * 4
+    slice_bytes, n_slices = 0, 0
     if sched.staged:
-        if (sched.q * W * 4) % 16 or x.data_ptr() % 16:
+        if (copy_bytes % 16 or x.data_ptr() % 16
+                or any(r * W * 4 % 16 for r in starts)):
             raise ValueError(f"{name}: a bulk copy moves 16-byte multiples from 16-byte "
-                             f"aligned addresses; rows of {W} float32 do not")
-        smem = _lib_fn("jrsw_probe_copy_smem_bytes", [ctypes.c_int] * 3)(W, sched.q,
-                                                                         sched.n_slots)
+                             f"aligned addresses; copies of {sched.q} rows of {W} float32 "
+                             f"from these rows do not")
+        slice_bytes, n_slices = copy_slices(copy_bytes)
+        smem = _lib_fn("jrsw_probe_copy_smem_bytes", [ctypes.c_int] * 4)(
+            copy_bytes, slice_bytes, n_slices, sched.n_slots)
         if smem > SMEM_LIMIT:
-            raise ValueError(f"{name}: the ring needs {smem} bytes of shared memory, "
-                             f"above the {SMEM_LIMIT} a block may have")
+            raise ValueError(f"{name}: the ring's slices need {smem} bytes of shared memory "
+                             f"a block, above the {SMEM_LIMIT} a block may have")
     out = torch.empty((sched.n_slots * sched.q, W), dtype=torch.float32, device=x.device)
-    fn = _lib_fn("jrsw_probe_copy", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-                                     ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+    vec4 = W % 4 == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    fn = _lib_fn("jrsw_probe_copy", [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = fn(int(sched.staged), x.data_ptr(), out.data_ptr(), W, sched.q, sched.n_copies,
-                 sched.wrap, sched.n_slots, sched.in_flight, a, b, _stream(x))
+                 sched.wrap, sched.n_slots, sched.in_flight, slice_bytes, n_slices, int(vec4),
+                 a, b, _stream(x))
     _check_launch(name, err)
     launches["probe_copy"] += 1
     return out
@@ -311,6 +349,75 @@ def row_ring_torch(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: 
     return table[rows.reshape(n_blocks, rows_per_blk)]
 
 
+# rings an SM (one a warp), chosen by the issuers curve of
+# scripts/torch_probe_sweeps.py (PERF.md): 8 rings an SM reach device
+# memory, 16 a little more
+RING_ISSUERS_PER_SM = 16
+
+
+def ring_bytes(K: int, copy_bytes: int, chunk: int, staged_idx: bool) -> int:
+    """Shared memory of one ring, a multiple of 128 bytes: K + 1 slots of
+    ``copy_bytes``, K + 2 mbarriers, then ``chunk`` staged indices at a
+    16-byte boundary (the order ``csrc/probe_row_ring.cu`` places them in;
+    its entry point checks that the size covers them)."""
+    idx_at = _up((K + 1) * copy_bytes + 8 * (K + 2), 16)
+    return _up(idx_at + (4 * chunk if staged_idx else 0), 128)
+
+
+@dataclass(frozen=True)
+class RingPlan:
+    """How the ring kernel cuts ``n_copies`` copies (copy c = b n_dma + i of
+    probe block b) into rings: ring r issues copies ``r chunk`` onwards,
+    ``chunk`` of them (the last ring what is left); ``rings_per_block``
+    rings a block, one a warp, one block per SM."""
+
+    n_copies: int
+    n_rings: int
+    chunk: int
+    rings_per_block: int
+    ring_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return _cdiv(self.n_rings, self.rings_per_block)
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.rings_per_block * self.ring_bytes
+
+    def rings(self, n_dma: int) -> list[tuple[int, int, int]]:
+        """Each ring's first copy as (probe block b, copy i in b) and its count."""
+        return [(*divmod(r * self.chunk, n_dma), min(self.chunk, self.n_copies - r * self.chunk))
+                for r in range(self.n_rings)]
+
+
+def ring_plan(n_copies: int, K: int, copy_bytes: int, *, staged_idx: bool,
+              n_sms: int) -> RingPlan:
+    """Cut ``n_copies`` copies into contiguous chunks, one per ring, for
+    ``RING_ISSUERS_PER_SM`` rings on each of ``n_sms`` SMs, fewer where
+    shared memory holds fewer rings of K + 1 slots (or where there are fewer
+    copies than rings). With staged indices a chunk is a multiple of 4
+    copies, so each ring's indices start on a 16-byte boundary."""
+    if n_copies < 1 or n_sms < 1:
+        raise ValueError(f"ring_plan: {n_copies} copies on {n_sms} SMs")
+    align = 4 if staged_idx else 1
+    if staged_idx and n_copies % 4:
+        raise ValueError("ring_plan: staged indices take a multiple of 4 copies")
+    per_block = RING_ISSUERS_PER_SM
+    while True:
+        chunk = _up(_cdiv(n_copies, per_block * n_sms), align)
+        rb = ring_bytes(K, copy_bytes, chunk, staged_idx)
+        if per_block * rb <= SMEM_LIMIT or per_block == 1:
+            break
+        per_block -= 1
+    if rb > SMEM_LIMIT:
+        raise ValueError(f"ring_plan: a ring of {K} + 1 slots of {copy_bytes} bytes needs {rb} "
+                         f"bytes of shared memory, above the {SMEM_LIMIT} a block may have")
+    n_rings = _cdiv(n_copies, chunk)
+    # few rings: spread them over the SMs before stacking them
+    return RingPlan(n_copies, n_rings, chunk, min(per_block, _cdiv(n_rings, n_sms)), rb)
+
+
 def row_ring(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: int, Q: int = 1,
              modulus: int | None = None, idx: torch.Tensor | None = None) -> torch.Tensor:
     """The per-row copy probe over a float32 or bfloat16 ``table (R, W)``:
@@ -320,13 +427,16 @@ def row_ring(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: int, Q
     kernel), and writes every copy's rows in issue order ->
     ``(n_blocks, rows_per_blk, W)``. The Pallas probe's ring of 2K slots,
     slot s holding the last copy i with i mod 2K = s, is a selection of a
-    block's rows."""
+    block's rows. On the card the copies run on rings spread over every SM
+    (``ring_plan``), whatever ``n_blocks``."""
     name = "row_ring"
     _check_dtype(name, "table", table, torch.float32, torch.bfloat16)
     if table.ndim != 2:
         raise ValueError(f"{name}: table must be 2-D")
-    if rows_per_blk % Q or rows_per_blk // Q < 2 * K:
+    if n_blocks < 1 or Q < 1 or rows_per_blk % Q or rows_per_blk // Q < 2 * K:
         raise ValueError(f"{name}: a block starts rows_per_blk / Q copies, at least 2K")
+    if not 1 <= K <= 64:
+        raise ValueError(f"{name}: 1 to 64 copies in flight, not {K}")
     if (idx is None) == (modulus is None):
         raise ValueError(f"{name}: give either modulus (synthetic rows) or idx")
     if idx is not None:
@@ -336,6 +446,9 @@ def row_ring(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: int, Q
                              f"rows_per_blk a multiple of 4")
     elif not 0 < modulus <= table.shape[0] - Q + 1:
         raise ValueError(f"{name}: rows r .. r+Q-1 with r < {modulus} leave the table")
+    n_copies = n_blocks * (rows_per_blk // Q)
+    if n_copies > INT32_MAX:
+        raise ValueError(f"{name}: the kernel counts copies in 32-bit arithmetic")
     if _on_cpu(name, table, *(() if idx is None else (idx,))):
         return row_ring_torch(table, n_blocks=n_blocks, rows_per_blk=rows_per_blk, K=K, Q=Q,
                               modulus=modulus, idx=idx)
@@ -343,19 +456,18 @@ def row_ring(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: int, Q
     if row_bytes % 16 or table.data_ptr() % 16 or (idx is not None and idx.data_ptr() % 16):
         raise ValueError(f"{name}: a bulk copy moves 16-byte multiples from 16-byte "
                          f"aligned addresses; rows of {row_bytes} bytes do not")
-    smem = _lib_fn("jrsw_row_ring_smem_bytes", [ctypes.c_int] * 5)(
-        rows_per_blk, K, Q, row_bytes, int(idx is not None))
-    if smem > SMEM_LIMIT or K > 64:
-        raise ValueError(f"{name}: K = {K} slots of {Q} rows need {smem} bytes of shared "
-                         f"memory (at most {SMEM_LIMIT}, K at most 64)")
+    plan = ring_plan(n_copies, K, Q * row_bytes, staged_idx=idx is not None,
+                     n_sms=torch.cuda.get_device_properties(table.device).multi_processor_count)
     out = torch.empty((n_blocks, rows_per_blk, table.shape[1]), dtype=table.dtype,
                       device=table.device)
     fn = _lib_fn("jrsw_row_ring", [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                 + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
+                 + [ctypes.c_int] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
     with torch.cuda.device(table.device):
         err = fn(table.data_ptr(), table.shape[0], None if idx is None else idx.data_ptr(),
                  out.data_ptr(), n_blocks, rows_per_blk, K, Q, row_bytes, RING_STRIDE,
-                 RING_OFFSET, modulus or 1, _stream(table))
+                 RING_OFFSET, modulus or 0, plan.n_rings, plan.chunk, plan.rings_per_block,
+                 plan.ring_bytes, _stream(table))
     _check_launch(name, err)
     launches["row_ring"] += 1
     return out

@@ -44,10 +44,14 @@ def run(device, card: str) -> list[Result]:
     rng = np.random.default_rng(0)
     sched, a, b, shape = probes.COPY_PROBES["trivial"]
     x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+    # 1 + 2x in one call, bit-equal: 2x is exact, so a fused multiply-add
+    # rounds as the product and the sum do
+    ones = torch.ones_like(x)
     out = [measure("stage 1: trivial 2x + 1, (256, 256) f32, plain loads", card,
                    kernel="probe_copy", n_rows=shape[0], nbytes=2 * x.numel() * 4,
                    fn=lambda: probes.staged_copy(x, sched, a, b),
-                   plain=lambda: probes.staged_copy_torch(x, sched, a, b))]
+                   plain=lambda: probes.staged_copy_torch(x, sched, a, b),
+                   library=lambda: torch.add(ones, x, alpha=a), library_name="torch.add")]
 
     fo, fn_ = (torch.as_tensor(rng.standard_normal((5, NY, NX)).astype(np.float32),
                                device=device) for _ in range(2))

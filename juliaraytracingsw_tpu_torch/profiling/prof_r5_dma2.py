@@ -8,8 +8,8 @@
 (b) real scattered indices, staged per block into shared memory first,
     K in (8, 32).
 
-Each at the script's split (16 blocks of 8192 rows) and at one that fills
-the card (256 blocks of 512).
+Each at the script's split (16 blocks of 8192 rows) and at 256 blocks of
+512; the kernel spreads the copies of either over every SM.
 
     python -m juliaraytracingsw_tpu_torch.profiling prof_r5_dma2
 """

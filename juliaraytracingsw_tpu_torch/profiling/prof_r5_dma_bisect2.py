@@ -3,8 +3,8 @@ of ``benchmarks/profiling/prof_r5_dma_bisect2.py``).
 
 The script's six cases (row width W, copies per block, blocks, K, dtype)
 over a table of 512^2 rows drawn per case from one seed-0 stream, synthetic
-rows modulo R. The cases of 8192 copies per block run again at a split that
-fills the card (256 blocks of 512).
+rows modulo R. The cases of 8192 copies per block run again at 256 blocks
+of 512, which the kernel spreads over the card as it does the script's.
 
     python -m juliaraytracingsw_tpu_torch.profiling prof_r5_dma_bisect2
 """

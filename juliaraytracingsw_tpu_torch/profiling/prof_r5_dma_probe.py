@@ -11,8 +11,8 @@ script), the ray path's gather:
    ``index_select``; ``argsort`` of the indices (a library call);
 2. the per-row copy ring, one bulk copy (TMA) per row with K = 8 or 32 in
    flight, 131,072 rows at the script's split (16 blocks of 8192 rows) and
-   at a split that fills the card (256 blocks of 512), f32 and bf16, each
-   beside ``index_select`` of the same rows;
+   at 256 blocks of 512 (the kernel spreads either over every SM), f32 and
+   bf16, each beside ``index_select`` of the same rows;
 3. the sorted-window one-hot prototype (a library computation, as the
    script's was XLA): blocks of 2048 sorted cells take their rows from a
    window of 1024 or 2048 table rows by a one-hot bf16 matmul.

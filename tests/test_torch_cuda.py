@@ -8,6 +8,7 @@ without the suite's ``conftest.py``:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+
 import numpy as np
 import pytest
 
@@ -340,6 +341,63 @@ def test_row_ring_matches_plain(K, Q, dtype, indices, cuda_device):
     assert torch.equal(out, probes.row_ring_torch(table, **kw))
 
 
+# the ring kernel at ragged shapes: (n_blocks, rows_per_blk, K, Q, dtype, staged
+# indices)
+_RAGGED_RINGS = [
+    (3, 1001, 8, 1, torch.float32, False),      # copies not divisible by the rings
+    (8, 16, 4, 1, torch.float32, False),        # fewer copies than rings
+    (1, 64, 8, 1, torch.float32, False),        # n_blocks = 1
+    (4, 8192, 8, 32, torch.float32, False),     # Q = 32: gaps between blocks
+    (8, 8192, 8, 1, torch.bfloat16, False),     # bf16, past the int32 wrap
+    (8, 1024, 8, 8, torch.bfloat16, False),     # bf16, Q = 8
+    (8, 8192, 32, 1, torch.float32, False),     # K = 32
+    (7, 572, 8, 1, torch.float32, True),        # staged indices, a ragged last chunk
+    (5, 12, 2, 1, torch.float32, True),         # staged, fewer copies than rings
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(_RAGGED_RINGS)))
+def test_row_ring_ragged_matches_plain(case, cuda_device):
+    """Ragged splits of the copies into rings, bit-equal to the plain
+    version."""
+    probes = _probes()
+    nb, rpb, K, Q, dtype, indices = _RAGGED_RINGS[case]
+    g = torch.Generator().manual_seed(4 + case)
+    R = 4096
+    table = torch.randn((R, 160), generator=g).to(dtype).to(cuda_device)
+    kw = dict(n_blocks=nb, rows_per_blk=rpb, K=K, Q=Q)
+    if indices:
+        kw["idx"] = torch.randint(0, R, (nb * rpb,), generator=g,
+                                  dtype=torch.int32).to(cuda_device)
+    else:
+        kw["modulus"] = R - Q
+    before = probes.launches["row_ring"]
+    out = probes.row_ring(table, **kw)
+    torch.cuda.synchronize()
+    assert probes.launches["row_ring"] == before + 1
+    assert torch.equal(out, probes.row_ring_torch(table, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(6))
+def test_copy_extra_schedules_match_plain(case, cuda_device):
+    """Schedules beyond the Pallas ones: 48-byte copies (q = 3, W = 4), 37
+    copies from an odd src_mod into 5 slots, 5 in flight, 3 in flight on 5
+    slots (one starting thread), one 256 KB copy on 128 blocks, and the
+    plain mode with rows of 6 floats (no 16-byte accesses) and of 260."""
+    from torch_probe_cases import EXTRA_COPY_SCHEDULES
+
+    probes = _probes()
+    sched, shape = EXTRA_COPY_SCHEDULES[case]
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(case)).to(cuda_device)
+    before = probes.launches["probe_copy"]
+    out = probes.staged_copy(x, sched, 2.0, 0.5)
+    torch.cuda.synchronize()
+    assert probes.launches["probe_copy"] == before + 1
+    assert torch.equal(out, probes.staged_copy_torch(x, sched, 2.0, 0.5))
+
+
 @pytest.mark.cuda
 def test_probe_wrappers_refuse_what_they_cannot_do(cuda_device):
     probes = _probes()
@@ -355,8 +413,12 @@ def test_probe_wrappers_refuse_what_they_cannot_do(cuda_device):
     with pytest.raises(ValueError, match="16-byte"):
         probes.gather_rows(torch.zeros((64, 3), device=cuda_device), rows)
     with pytest.raises(ValueError, match="shared memory"):
-        probes.staged_copy(torch.zeros((512, 128), device=cuda_device),
-                           probes.CopySchedule(q=512), 1.0, 0.0)
+        probes.staged_copy(torch.zeros((1024, 128), device=cuda_device),
+                           probes.CopySchedule(q=1, n_copies=1024, n_slots=1024), 1.0, 0.0)
+    with pytest.raises(ValueError, match="16-byte"):
+        # copy 1 starts at row 2 of rows of one float: 8 bytes in
+        probes.staged_copy(torch.zeros((64, 1), device=cuda_device),
+                           probes.CopySchedule(q=8, n_copies=3, src_mod=6), 1.0, 0.0)
     before = dict(probes.launches)
     out = probes.gather_rows(table.cpu(), rows.cpu())
     assert out.device.type == "cpu" and probes.launches == before

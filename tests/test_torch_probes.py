@@ -27,6 +27,7 @@ from jax.experimental import pallas as pl  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from juliaraytracingsw_tpu_torch.ops import probes  # noqa: E402
+from torch_probe_cases import EXTRA_COPY_SCHEDULES  # noqa: E402
 
 PROF = Path(__file__).resolve().parent.parent / "benchmarks" / "profiling"
 
@@ -107,6 +108,56 @@ def test_copy_probe_matches_pallas(name):
                            None if sem is None else pltpu.SemaphoreType.DMA(sem), grid)
     assert sched.staged == (name not in ("trivial", "k0"))
     _equal(probes.staged_copy(torch.from_numpy(x), sched, a, b), got)
+
+
+def _simulated_ring(x, sched, a, b):
+    """A schedule run one copy at a time into a ring of slots, as the Pallas
+    probes and the kernel run it (in-flight copies land in issue order)."""
+    ring = np.zeros((sched.n_slots, sched.q, x.shape[1]), np.float32)
+    for i in range(sched.n_copies):
+        start = (i * sched.q) % sched.wrap
+        ring[i % sched.n_slots] = x[start:start + sched.q]
+    return ring.reshape(-1, x.shape[1]) * np.float32(a) + np.float32(b)
+
+
+@pytest.mark.parametrize("case", range(len(EXTRA_COPY_SCHEDULES)))
+def test_copy_plain_version_is_the_ring_it_simulates(case):
+    """The plain version of the schedules the GPU tests add, against the
+    ring run copy by copy."""
+    sched, shape = EXTRA_COPY_SCHEDULES[case]
+    x = np.random.default_rng(case).standard_normal(shape).astype(np.float32)
+    got = probes.staged_copy(torch.from_numpy(x), sched, 2.0, 0.5)
+    assert torch.equal(got, torch.from_numpy(_simulated_ring(x, sched, 2.0, 0.5)))
+
+
+@pytest.mark.parametrize("copy_bytes", [16, 48, 512, 2032, 2048, 4096, 4112, 5008, 20480,
+                                        131072, 262144, 262160])
+def test_copy_slices_tile_every_copy(copy_bytes):
+    """The staged kernel's slices of one copy: 16-byte multiples that tile
+    it, none empty, at least 2 KB each where the copy is, the last the
+    longest by less than 16 bytes a slice."""
+    slice_bytes, n = probes.copy_slices(copy_bytes)
+    bounds = [(s * slice_bytes, (s + 1) * slice_bytes if s + 1 < n else copy_bytes)
+              for s in range(n)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == copy_bytes
+    assert all(hi > lo and lo % 16 == 0 and hi % 16 == 0 for lo, hi in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert n == max(1, copy_bytes // probes.COPY_SLICE_MIN)
+    sizes = [hi - lo for lo, hi in bounds]
+    assert max(sizes) == sizes[-1] < slice_bytes + 16 * n
+    if copy_bytes >= probes.COPY_SLICE_MIN:
+        assert min(sizes) >= probes.COPY_SLICE_MIN
+
+
+def test_copy_slices_of_the_pallas_schedules():
+    """k1 and k2's 128 KB copy on 64 blocks, the 4 KB copies of k3-k5 on 2;
+    a copy that is no 16-byte multiple is refused."""
+    got = {name: probes.copy_slices(sched.q * shape[1] * 4)
+           for name, (sched, _, _, shape) in probes.COPY_PROBES.items() if sched.staged}
+    assert got == {"k1": (2048, 64), "k2": (2048, 64), "k3": (2048, 2), "k4": (2048, 2),
+                   "k5": (2048, 2)}
+    with pytest.raises(ValueError, match="16 bytes"):
+        probes.copy_slices(40)
 
 
 def test_copy_schedules_name_the_surviving_rows():
@@ -294,6 +345,94 @@ def test_ring_rows_wrap_like_int32():
         want = np.asarray((g * 40503 + 12345) % m)
         assert int((np.arange(16 * rpb, dtype=np.int64) * 40503 + 12345 >= 2 ** 31).sum()) > 0
         assert (want < 0).sum() == 0 and np.array_equal(rows.numpy(), want)
+
+
+_RING_PLANS = [   # (n_blocks, rows_per_blk, Q, K, staged indices, SMs)
+    (16, 8192, 1, 8, False, 132),      # the scripts' split ...
+    (256, 512, 1, 8, False, 132),      # ... and one that filled the card
+    (16, 8192, 1, 32, True, 132),      # kern_b: staged indices
+    (16, 8192, 32, 8, False, 132),     # Q = 32: 256 copies a block, gaps between
+    (16, 8192, 8, 8, False, 7),        # Q = 8 on a few SMs: shared memory caps the rings
+    (3, 1001, 1, 8, False, 132),       # copies not divisible by the rings
+    (8, 16, 1, 4, False, 132),         # fewer copies than rings
+    (1, 64, 1, 8, False, 132),         # n_blocks = 1
+    (1, 8, 1, 4, True, 132),           # one ring of staged indices
+    (7, 572, 1, 8, True, 3),           # staged, a ragged last chunk
+    (5, 12, 1, 2, True, 132),          # staged, fewer copies than rings
+    (16, 8192, 1, 8, False, 1),        # one SM
+]
+
+
+@pytest.mark.parametrize("case", _RING_PLANS)
+def test_ring_plan_issues_every_copy_once(case):
+    """Every copy (b, i) of the probe is issued by exactly one ring, walking
+    from the ring's first (b, i) as the kernel does (i + 1, on to block b + 1
+    where i reaches n_dma, so Q > 1 skips the block's unused walk); staged
+    index chunks start at a multiple of 4; the block fits shared memory."""
+    n_blocks, rpb, Q, K, staged, n_sms = case
+    n_dma = rpb // Q
+    row_bytes = 640
+    plan = probes.ring_plan(n_blocks * n_dma, K, Q * row_bytes, staged_idx=staged,
+                            n_sms=n_sms)
+    issued = np.zeros((n_blocks, n_dma), np.int64)
+    rings = plan.rings(n_dma)
+    assert len(rings) == plan.n_rings
+    for r, (b, i, count) in enumerate(rings):
+        assert count >= 1 and (count == plan.chunk or r == plan.n_rings - 1)
+        if staged:
+            assert (b * rpb + i) % 4 == 0 and count % 4 == 0
+        for _ in range(count):
+            issued[b, i] += 1
+            i += 1
+            if i == n_dma:
+                b, i = b + 1, 0
+    assert (issued == 1).all()
+    assert plan.smem_bytes <= probes.SMEM_LIMIT and plan.blocks <= n_sms
+    assert 1 <= plan.rings_per_block <= probes.RING_ISSUERS_PER_SM
+    assert plan.ring_bytes == probes.ring_bytes(K, Q * row_bytes, plan.chunk, staged)
+    assert plan.ring_bytes % 128 == 0
+    assert plan.ring_bytes >= (K + 1) * Q * row_bytes + 8 * (K + 2) + 4 * plan.chunk * staged
+
+
+def test_ring_plan_fills_the_card_whatever_the_split():
+    """The 16-block and the 256-block split of the same 131,072 rows give
+    the kernel the same rings, 16 a block on 131 of 132 SMs; shared memory
+    caps the rings a block where a ring's slots are large."""
+    plans = {split: probes.ring_plan(split[0] * split[1], 8, 640, staged_idx=False, n_sms=132)
+             for split in ((16, 8192), (256, 512))}
+    assert len(set(plans.values())) == 1
+    plan = plans[16, 8192]
+    assert plan.rings_per_block == probes.RING_ISSUERS_PER_SM and plan.blocks >= 131
+    big = probes.ring_plan(4096, 8, 32 * 640, staged_idx=False, n_sms=132)
+    assert big.rings_per_block == 1 and big.smem_bytes <= probes.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        probes.ring_plan(4096, 64, 32 * 640, staged_idx=False, n_sms=132)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        probes.ring_plan(4098, 8, 640, staged_idx=True, n_sms=132)
+
+
+_RING_REFUSALS = [   # (keyword arguments of row_ring over a (64, 8) table, what it says)
+    (dict(idx=torch.zeros(31, dtype=torch.int32)), "one index per row"),     # short idx
+    (dict(idx=torch.zeros(33, dtype=torch.int32)), "one index per row"),     # long idx
+    (dict(idx=torch.zeros(32, dtype=torch.int64)), "int32"),
+    (dict(idx=torch.zeros((4, 8), dtype=torch.int32)), "one index per row"),
+    (dict(), "either modulus"),
+    (dict(modulus=64, idx=torch.zeros(32, dtype=torch.int32)), "either modulus"),
+    (dict(modulus=0), "leave the table"),
+    (dict(modulus=64, K=65, rows_per_blk=256), "1 to 64"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(_RING_REFUSALS)))
+def test_row_ring_refuses_what_the_kernel_cannot_take(case):
+    """Indices of the wrong length, dtype or shape, a missing or doubled
+    row source, a modulus off the table and K past the kernel's slots are
+    refused before anything launches, on the CPU as on the card."""
+    kw, msg = _RING_REFUSALS[case]
+    kw = dict(dict(n_blocks=1, rows_per_blk=32, K=4), **kw)
+    with pytest.raises((TypeError, ValueError), match=msg):
+        probes.row_ring(torch.zeros((64, 8)), **kw)
+    assert probes.launches == dict.fromkeys(probes.launches, 0)
 
 
 # --- the wrappers ------------------------------------------------------------
