@@ -35,11 +35,23 @@ without them, and on any failed check. Phases, each printing its lines:
    ray integrator at the reference's tolerances (rtol 1e-3, atol 1e-6),
    3 frames of 5 coupled steps from the initial condition, the accepted
    and rejected attempts of one interval; then 1 frame each of its
-   bspline and bicubic rows.
+   bspline and bicubic rows;
+5. gradients on the card: 5a. ``TableSubstep``'s backward (the per-stage
+   formulation in plain PyTorch, as the reference's is XLA) at N =
+   1,048,576 for each interp on the float32 and the bfloat16 table, held
+   against plain autograd through the twin, forward + backward timed in a
+   CUDA graph beside the forward alone; 5b. the gradient of mean(k^2 +
+   l^2) with respect to sol through one 128^2 RK4 frame, GPU vs CPU, and
+   one implicit-midpoint frame GPU vs CPU (forward); 5c. the hero's fwd+bwd
+   step (``bench.py:324-341``), one table kernel launch a call, timed with
+   its peak memory; 5d. the gradient through 100 coupled 512^2 steps with
+   remat (``bench.py:343-376``, taps gather, 16,384 packets), timed with
+   its peak memory, and 10 steps with and without remat, held equal.
 
-The kernels' launch counts are set to 0 before each main path (2c, 4 and
-4b) and read after it; the heroes must launch only the table forms. The
-first cut runs on no main path: its launches are phase 2's.
+The kernels' launch counts are set to 0 before each main path (2c, 4, 4b
+and 5c) and read after it; the heroes must launch only the table forms. The
+first cut runs on no main path: its launches are phase 2's. Every time
+printed carries the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +124,21 @@ ESUM_ATOL_OF_MAX, NORM_RTOL = 1e-2, 1e-3
 # rows_T values a packet's stages read when they stay in its base cell:
 # 5 fields x 2x2 taps (4x4 bspline; 4 Hermite blocks x 2x2 bicubic) x 2 levels
 TOUCHED_TAPS = {"bilinear": 40, "bspline": 160, "bicubic": 160}
+# phase 5a: TableSubstep's backward (the per-stage formulation) against
+# plain autograd through the twin, both on the card: two formulations of
+# one VJP in float32, the state's and the scalars' cotangents to rtol 1e-4,
+# atol 1e-6 of their largest; the table's cotangent is summed by atomics
+# in no fixed order, the float32 table's to 1e-4 of its largest (the
+# bfloat16 table's accumulates in bfloat16: finite, the same rows reached)
+SUBSTEP_VJP_RTOL, SUBSTEP_VJP_ATOL_OF_MAX = 1e-4, 1e-6
+TABLE_VJP_ATOL_OF_MAX = 1e-4
+# phase 5b: the frame's gradient GPU vs CPU, relative L2 (cuFFT against the
+# CPU's FFT, FMA contraction in the kernel, atomics in the scatters)
+GRAD_L2_RTOL = 1e-4
+# phase 5d: the 10-step gradient with and without remat, max |difference|
+# over max |gradient| (the recomputed steps are the same calls; only the
+# atomics' order differs)
+REMAT_RTOL = 1e-6
 
 
 def psih_maker(grid, params):
@@ -396,7 +423,9 @@ def phase_gpu_vs_cpu(device, ray_method: str = "rk4", ray_opts: dict | None = No
     start, cpu, cpu_infos = coupled_frame("cpu", ray_method=ray_method, ray_opts=ray_opts)
     decisions = [[(int(i["n_accepted"]), int(i["n_rejected"])) for i in infos]
                  for infos in (gpu_infos, cpu_infos)]
-    expected = sum(a + r for a, r in decisions[0]) if gpu_infos else 5
+    # one launch per attempt (adaptive) or RK4 substep; midpoint runs per stage
+    expected = (sum(a + r for a, r in decisions[0]) if gpu_infos
+                else 5 if ray_method == "rk4" else 0)
     if launched != expected:
         raise AssertionError(f"the GPU frame launched the kernel {launched} times, "
                              f"not {expected}")
@@ -529,6 +558,264 @@ def adaptive_interval(card: str, device) -> None:
           f"[{card}]")
 
 
+def substep_vjp(fn, T_pair, st, scal, cot, **geo):
+    """Cotangents of (T_pair, st, scal) of ``fn`` (``table_substep`` or its
+    twin) at the output cotangent ``cot``."""
+    leaves = [t.detach().requires_grad_() for t in (T_pair, st, scal)]
+    return torch.autograd.grad(fn(*leaves, **geo), leaves, cot)
+
+
+def phase_substep_backward(card: str, device, n: int = 1 << 20, nx: int = 512) -> dict:
+    """5a: ``TableSubstep``'s backward (the per-stage formulation, plain
+    PyTorch) at the hero's shapes, for each interp on the float32 and the
+    bfloat16 table, against plain autograd through the twin on the card;
+    forward + backward timed in a CUDA graph beside the forward alone.
+    Returns {(interp, dtype): forward + backward ms}."""
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import band_geo_wave_ic
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.profiling._timing import device_ms
+    from juliaraytracingsw_tpu_torch.rays.raytrace import build_pair, fields_from_psih
+
+    times = {}
+    for interp in INTERPS:
+        grid, _, sol0, rp, psih_fn = make_case(nx, interp, "float32", device)
+        sol1 = band_geo_wave_ic(grid, np.random.default_rng(2), Kg=(10, 13), Kw=(0, 5),
+                                ag=0.5, aw=0.05, f=F, Cg=CG)
+        fo, fn = (fields_from_psih(psih_fn(s), grid, interp) for s in (sol0, sol1))
+        # packets in random cells, 0.2 cells or more from any face: over one
+        # hero dt no stage comes near one. At a face the bilinear
+        # interpolant's derivative jumps, and the kernel's patch-local and
+        # the per-stage formulation's global coordinates may round a stage
+        # there to either side (seen on the card: 96 of 5,242,880 state
+        # cotangents of random positions)
+        rng = np.random.default_rng(12)
+        cx, cy = rng.integers(0, nx, (2, n))
+        x, y = (origin + (c + rng.uniform(0.2, 0.8, n)) * step
+                for origin, c, step in ((rp.x0, cx, rp.dx), (rp.y0, cy, rp.dy)))
+        phase = rng.uniform(0, 2 * np.pi, n)
+        sign = np.where(np.arange(n) % 2 == 0, -1.0, 1.0)
+        st = torch.as_tensor(np.stack([x, y, K0 * np.cos(phase), K0 * np.sin(phase), sign])
+                             .astype(np.float32), device=device)
+        cot = torch.as_tensor(rng.standard_normal((4, n)).astype(np.float32), device=device)
+        scal = torch.tensor([0.0, DT], dtype=torch.float32, device=device)
+        for dtype in TABLE_DTYPES:
+            rpd = rp._replace(table_dtype=dtype)
+            T_pair = build_pair(fo, fn, rpd)
+            geo = dict(rp=rpd, interp=interp, da=1.0, ny=grid.ny, nx=grid.nx)
+            ref = substep_vjp(ray_step.table_substep_torch, T_pair, st, scal, cot, **geo)
+            before = ray_step.table_launches[interp]
+            got = substep_vjp(ray_step.table_substep, T_pair, st, scal, cot, **geo)
+            torch.cuda.synchronize()
+            if ray_step.table_launches[interp] != before + 1:
+                raise AssertionError(f"5a {interp} {dtype}: the forward did not launch the "
+                                     f"table kernel once")
+            errs = []
+            for name, a, b in zip(("st", "scal"), got[1:], ref[1:]):
+                scale = float(b.abs().max())
+                torch.testing.assert_close(a, b, rtol=SUBSTEP_VJP_RTOL,
+                                           atol=SUBSTEP_VJP_ATOL_OF_MAX * scale)
+                errs.append(f"{name} {float((a - b).abs().max()) / scale:.3e}")
+            gT, rT = got[0], ref[0]
+            if gT.dtype != T_pair.dtype or not bool(torch.isfinite(gT).all()):
+                raise AssertionError(f"5a {interp} {dtype}: the table's cotangent is not "
+                                     f"finite {T_pair.dtype}")
+            rows = [(g != 0).any(dim=1) for g in (gT, rT)]
+            if not (torch.equal(*rows) and bool(rows[0].any())):
+                raise AssertionError(f"5a {interp} {dtype}: the table's cotangent reaches "
+                                     f"other rows than the twin's")
+            t_scale = float(rT.float().abs().max())
+            t_err = float((gT.float() - rT.float()).abs().max()) / t_scale
+            if dtype == "float32":
+                torch.testing.assert_close(gT, rT, rtol=0, atol=TABLE_VJP_ATOL_OF_MAX * t_scale)
+            del ref, got, gT, rT
+            fwd_ms = device_ms(lambda: ray_step.table_substep(T_pair, st, scal, **geo))
+            torch.cuda.reset_peak_memory_stats()
+            both_ms = device_ms(lambda: substep_vjp(ray_step.table_substep, T_pair, st, scal,
+                                                    cot, **geo))
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            times[interp, dtype] = both_ms
+            held = (f"(limit {TABLE_VJP_ATOL_OF_MAX})" if dtype == "float32"
+                    else "(not held: bf16 accumulation; finite, same rows)")
+            print(f"5a TableSubstep backward {interp}, {dtype} table {tuple(T_pair.shape)}, "
+                  f"N={n}: max |kernel VJP - twin autograd| / max: {', '.join(errs)} (rtol "
+                  f"{SUBSTEP_VJP_RTOL}, atol {SUBSTEP_VJP_ATOL_OF_MAX} of max), T_pair "
+                  f"{t_err:.3e} {held}, {int(rows[0].sum())} rows reached; forward + "
+                  f"backward {both_ms:.4f} ms, forward alone {fwd_ms:.4f} ms, peak "
+                  f"{peak:.2f} GiB [{card}]", flush=True)
+            del T_pair
+        del fo, fn, st, cot
+        torch.cuda.empty_cache()
+    return times
+
+
+def frame_grad(device):
+    """5b: d mean(k^2 + l^2) / d sol after one 128^2 x 16,384-packet frame
+    of 5 steps (phase 3's set-up)."""
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    grid, model, sol0, rp, psih_fn = make_case(128, "bilinear", "float32", device)
+    init, step = build_stepper(model, "IFMAB3", DT)
+    frame = make_coupled_frame(model, step, psih_fn, rp, 5, k_cutoff=K_CUTOFF, k0=K0)
+    packets = lattice_packets(128, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
+    sol = sol0.clone().requires_grad_()
+    end = frame(SimState(sol, zero_clock(device=device), init(sol), packets,
+                         fields_from_psih(psih_fn(sol), grid, rp.interp)))
+    loss = torch.mean(end.packets.k ** 2 + end.packets.l ** 2)
+    return torch.autograd.grad(loss, sol)[0]
+
+
+def phase_gradient_gpu_vs_cpu(device) -> None:
+    """5b: the RK4 frame's gradient on the card against the CPU's, and one
+    midpoint frame (forward only) on both."""
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+
+    before = ray_step.table_launches["bilinear"]
+    first_cut = launch_counts()["first cut"]
+    gpu = frame_grad(device)
+    torch.cuda.synchronize()
+    launched = ray_step.table_launches["bilinear"] - before
+    if launched != 5 or launch_counts()["first cut"] != first_cut:
+        raise AssertionError(f"5b: the GPU frame's gradient launched the table kernel "
+                             f"{launched} times (not 5) or a first-cut kernel")
+    cpu = frame_grad("cpu")
+    rel = float(torch.linalg.vector_norm(gpu.cpu() - cpu) / torch.linalg.vector_norm(cpu))
+    print(f"5b GPU vs CPU, d mean(k^2 + l^2) / d sol through one RK4 frame (128^2, 16384 "
+          f"packets, 5 steps, f32 tables): relative L2 {rel:.3e} (limit {GRAD_L2_RTOL}), "
+          f"|grad| {float(torch.linalg.vector_norm(cpu)):.4e}; table kernel launches "
+          f"{launched}", flush=True)
+    if not rel <= GRAD_L2_RTOL:
+        raise AssertionError("5b: the GPU and CPU gradients disagree")
+    phase_gpu_vs_cpu(device, "midpoint")
+
+
+def events_ms(fn, warmup: int = 1, trials: int = 3) -> list[float]:
+    """Wall milliseconds of ``fn()`` between CUDA events, each trial ended
+    by a synchronize, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def peak_gib(fn):
+    """One call of ``fn`` -> (its result, the peak of
+    ``torch.cuda.max_memory_allocated`` during it, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_hero_fwd_bwd(card: str, device, nx: int = 512, sqrtp: int = 1024) -> dict:
+    """5c: the hero's differentiable step (``bench.py:324-341``): 512^2 RSW,
+    IF-AB3, 1,048,576 packets, bilinear, bf16 tables, one RK4 substep;
+    value and gradient of mean(k^2 + l^2) with respect to sol."""
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih, raytrace
+
+    grid, model, sol0, rp, psih_fn = make_case(nx, "bilinear", "bfloat16", device)
+    init, step = build_stepper(model, "IFMAB3", DT)
+    packets = lattice_packets(sqrtp, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
+
+    def value_and_grad():
+        sol = sol0.clone().requires_grad_()
+        fields_old = fields_from_psih(psih_fn(sol), grid, rp.interp)
+        sol1, _, _ = step(sol, zero_clock(device=device), init(sol))
+        fields_new = fields_from_psih(psih_fn(sol1), grid, rp.interp)
+        out = raytrace(packets, fields_old, fields_new, 0.0, DT, rp, nsubsteps=1)
+        loss = torch.mean(out.k ** 2 + out.l ** 2)
+        (grad,) = torch.autograd.grad(loss, sol)
+        return loss.detach(), grad
+
+    ray_step.reset_launches()
+    loss, grad = value_and_grad()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["table"]["bilinear"] != 1 or counts["first cut"] or any(
+            counts["table attempt"].values()):
+        raise AssertionError(f"5c: the hero's fwd+bwd step launched {counts}, not the table "
+                             f"kernel once")
+    gnorm = float(torch.linalg.vector_norm(grad))
+    if not (bool(torch.isfinite(grad.abs()).all()) and gnorm > 0):
+        raise AssertionError(f"5c: the hero's gradient is not finite and nonzero ({gnorm})")
+    del grad
+    ms = events_ms(value_and_grad)
+    _, peak = peak_gib(value_and_grad)
+    print(f"5c hero fwd+bwd step ({nx}^2 RSW + {packets.n} packets, bilinear, bf16 tables, one "
+          f"RK4 substep): loss {float(loss):.6e}, |grad| {gnorm:.4e}, table kernel launches "
+          f"{counts['table']['bilinear']}, first-cut launches {counts['first cut']}; "
+          f"{min(ms):.3f} ms (min of {len(ms)}, spread {max(ms) - min(ms):.3f} ms: "
+          f"{', '.join(f'{m:.3f}' for m in ms)}), peak {peak:.3f} GiB [{card}]", flush=True)
+    return dict(ms=min(ms), spread=max(ms) - min(ms), peak_gib=peak)
+
+
+def phase_long_gradient(card: str, device, nx: int = 512, steps: int = 100,
+                        short: int = 10) -> dict:
+    """5d: ``bench.py:343-376``: the gradient of mean(k^2 + l^2) with respect
+    to sol through 100 coupled 512^2 steps, taps gather, 16,384 packets,
+    remat; then the 10-step gradient with and without remat, held equal."""
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    grid, model, sol0, rp, psih_fn = make_case(nx, "bilinear", "float32", device)
+    rp = rp._replace(gather="taps")
+    init, step = build_stepper(model, "IFMAB3", DT)
+    packets = lattice_packets(128, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
+
+    def grad_through(steps: int, remat: bool):
+        frame = make_coupled_frame(model, step, psih_fn, rp, flow_steps=steps,
+                                   ray_substeps=1, k_cutoff=K_CUTOFF, k0=K0, remat=remat)
+
+        def run():
+            sol = sol0.clone().requires_grad_()
+            fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+            out = frame(SimState(sol, zero_clock(device=device), init(sol), packets, fields))
+            loss = torch.mean(out.packets.k ** 2 + out.packets.l ** 2)
+            return torch.autograd.grad(loss, sol)[0]
+        return run
+
+    run100 = grad_through(steps, True)
+    g100 = run100()
+    if not bool(torch.isfinite(g100.abs()).all()):
+        raise AssertionError(f"5d: the {steps}-step gradient is not finite")
+    gnorm = float(torch.linalg.vector_norm(g100))
+    del g100
+    ms = events_ms(run100, warmup=0, trials=2)
+    _, peak100 = peak_gib(run100)
+    grads, peaks = {}, {}
+    for remat in (False, True):
+        grads[remat], peaks[remat] = peak_gib(grad_through(short, remat))
+    rel = float((grads[True] - grads[False]).abs().max() / grads[False].abs().max())
+    print(f"5d gradient through {steps} coupled {nx}^2 steps (remat, taps gather, "
+          f"{packets.n} packets): |grad| {gnorm:.4e}, {min(ms) / 1e3:.4f} s (min of {len(ms)}: "
+          f"{', '.join(f'{m / 1e3:.4f}' for m in ms)} s), peak {peak100:.3f} GiB; {short} steps: "
+          f"peak {peaks[True]:.3f} GiB with remat, {peaks[False]:.3f} GiB without, max "
+          f"|remat - plain| / max {rel:.3e} (limit {REMAT_RTOL}) [{card}]", flush=True)
+    if not rel <= REMAT_RTOL:
+        raise AssertionError("5d: the remat gradient differs from the plain one")
+    return dict(s=min(ms) / 1e3, peak_gib=peak100, peak10_remat=peaks[True],
+                peak10_plain=peaks[False])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false",
@@ -584,6 +871,12 @@ def main() -> int:
                                  f"launches for {res['attempts']} attempts in "
                                  f"{res['coupled_steps']} coupled steps")
     adaptive_interval(card, device)
+
+    # phase 5: gradients on the card
+    fwd_bwd = phase_substep_backward(card, device)
+    phase_gradient_gpu_vs_cpu(device)
+    phase_hero_fwd_bwd(card, device)
+    phase_long_gradient(card, device)
     for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
@@ -595,7 +888,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": f"ray_step_rk4_table_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": counts[interp], "table_dtype": hero_dtype,
-         **tables[interp, hero_dtype]}
+         **tables[interp, hero_dtype], "fwd_bwd_ms": fwd_bwd[interp, hero_dtype]}
         for interp in INTERPS] + [
         {"name": f"ray_attempt_dp5_table_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,
          "replaces": ATTEMPT_REPLACES, "launches": attempt_counts[interp],

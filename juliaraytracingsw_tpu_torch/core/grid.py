@@ -5,8 +5,8 @@ Layouts are the reference's: physical fields ``(..., ny, nx)`` indexed
 non-negative x-wavenumbers on the last axis. The FFT normalisation is
 numpy's (forward unnormalised, inverse carries 1/(nx*ny)).
 
-All arrays are built in float64 numpy and rounded once to float32, so they
-are bit-equal to the JAX package's.
+All arrays are built in float64 numpy and rounded once to the grid's real
+dtype (float32 unless asked), so they are bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -34,8 +34,8 @@ class Grid:
     Krsq: torch.Tensor     # (nl, nkr) = kr^2 + l^2
     invKrsq: torch.Tensor  # (nl, nkr), zero at the (0,0) mode
     dealias_mask: torch.Tensor  # (nl, nkr) float mask, 1 keep / 0 zero
-    ik: torch.Tensor       # (1, nkr) complex64 i*kr
-    il: torch.Tensor       # (nl, 1) complex64 i*l
+    ik: torch.Tensor       # (1, nkr) complex i*kr (complex64 for float32)
+    il: torch.Tensor       # (nl, 1) complex i*l
 
     @property
     def device(self) -> torch.device:
@@ -77,10 +77,12 @@ def make_grid(
     ny: int | None = None,
     Ly: float | None = None,
     aliased_fraction: float = 1.0 / 3.0,
+    dtype: torch.dtype = torch.float32,
     *,
     device: torch.device | str = "cuda",
 ) -> Grid:
-    """Build a float32 Grid with every array on ``device``."""
+    """Build a Grid with every array on ``device``; ``dtype`` is the real
+    dtype of physical fields (float32 or float64)."""
     ny = nx if ny is None else ny
     Ly = Lx if Ly is None else Ly
     nkr = nx // 2 + 1
@@ -104,10 +106,12 @@ def make_grid(
     else:
         mask = np.ones((ny, nkr), bool)
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
-    kr_t, l_t = f32(kr), f32(ell)
+    def real(a):
+        return torch.as_tensor(np.asarray(a, np_dtype), device=device)
+
+    kr_t, l_t = real(kr), real(ell)
     zr, zl = torch.zeros_like(kr_t), torch.zeros_like(l_t)
     return Grid(
         nx=nx,
@@ -115,13 +119,13 @@ def make_grid(
         Lx=float(Lx),
         Ly=float(Ly),
         aliased_fraction=float(aliased_fraction),
-        x=f32(x),
-        y=f32(y),
+        x=real(x),
+        y=real(y),
         kr=kr_t,
         l=l_t,
-        Krsq=f32(Krsq),
-        invKrsq=f32(invKrsq),
-        dealias_mask=f32(mask),
+        Krsq=real(Krsq),
+        invKrsq=real(invKrsq),
+        dealias_mask=real(mask),
         ik=torch.complex(zr, kr_t)[None, :],
         il=torch.complex(zl, l_t)[:, None],
     )

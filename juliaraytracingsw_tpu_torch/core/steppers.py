@@ -5,8 +5,8 @@ Steppers share the reference's protocol::
     init_fn(sol0) -> state0
     step_fn(sol, clock, state) -> (sol', clock', state')
 
-``Clock.t`` is a 0-d float32 tensor on the state's device and accumulates
-in float32 exactly as the reference's does; ``Clock.step`` is the host's
+``Clock.t`` is a 0-d tensor on the state's device (float32 unless asked)
+and accumulates in its dtype exactly as the reference's does; ``Clock.step`` is the host's
 Python int, so the AB3 bootstrap branch never waits on the device.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ AB3_H1, AB3_H2, AB3_H3 = 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0
 
 
 class Clock(NamedTuple):
-    t: torch.Tensor  # () float32 model time, on the device
+    t: torch.Tensor  # () model time (float32 unless asked), on the device
     step: int        # step count, on the host
 
 
@@ -32,8 +32,9 @@ def tick(clock: Clock, dt: float) -> Clock:
     return Clock(clock.t + dt, clock.step + 1)
 
 
-def zero_clock(*, device: torch.device | str = "cuda") -> Clock:
-    return Clock(torch.zeros((), dtype=torch.float32, device=device), 0)
+def zero_clock(dtype: torch.dtype = torch.float32, *,
+               device: torch.device | str = "cuda") -> Clock:
+    return Clock(torch.zeros((), dtype=dtype, device=device), 0)
 
 
 def apply_L(L: torch.Tensor, sol: torch.Tensor) -> torch.Tensor:

@@ -2,18 +2,21 @@
 
 - ``derive_dt`` / ``derive_nu``: CFL-tuned time step and hyperviscosity.
 - ``make_coupled_frame``: K flow steps, each an IF-AB3 flow step followed
-  by a ray step from the old to the new snapshot: fixed RK4 or DP5
-  substeps through the (old, new) patch-table pair (the frame carries the
-  previous step's table as the old time level, so each flow step builds
-  one table) or through the taps path, or the adaptive integrator
-  (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg 7(8)),
-  which builds its own pair table from the two snapshots.
+  by a ray step from the old to the new snapshot: fixed RK4, DP5 or
+  implicit-midpoint substeps through the (old, new) patch-table pair (the
+  frame carries the previous step's table as the old time level, so each
+  flow step builds one table) or through the taps path, or the adaptive
+  integrator (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg
+  7(8)), which builds its own pair table from the two snapshots. With
+  ``remat`` each interleaved step is checkpointed for the backward pass.
 - ``make_flow_frame``: flow-only steps (spinup).
 - ``CoupledDriver``: the host loop around the frames, with spinup, the NaN
   guard and CFL/walltime logging.
 
 Frames are Python loops that enqueue device work; the host waits on the
-device once per frame, in the NaN guard.
+device once per frame, in the NaN guard. Everything in a frame is
+differentiable but the adaptive integrator's 'while' loop and its fused
+attempt, which are forward only, as in the reference.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.steppers import Clock, zero_clock
 from ..models.base import Model, build_stepper
@@ -30,7 +34,7 @@ from ..rays.packets import Packets
 from ..rays.patch import build_patch_table
 from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_from_psih,
                              make_pair_table, raytrace, raytrace_adaptive,
-                             raytrace_tables)
+                             raytrace_tables_fb)
 from ..rays.resample import k_cutoff_reset
 
 __all__ = [
@@ -38,8 +42,8 @@ __all__ = [
     "make_flow_frame", "CoupledDriver", "RAY_METHODS",
 ]
 
-# fixed-step integrators, then the adaptive ones ('midpoint' is not ported)
-RAY_METHODS = ("rk4", "dopri5", "adaptive", "adaptive7")
+# fixed-step integrators, then the adaptive ones
+RAY_METHODS = ("rk4", "dopri5", "midpoint", "adaptive", "adaptive7")
 
 
 def derive_dt(cfltune: float, umax: float, dx: float) -> float:
@@ -54,8 +58,9 @@ def derive_nu(nutune: float, nx: int, nnu: int, dt: float) -> float:
 
 
 class SimState(NamedTuple):
-    """Full coupled simulation state. ``bd`` (birth/death) is always None
-    until that resampling is ported (ROADMAP queue 1, item 16)."""
+    """Full coupled simulation state, in float32 (complex64 ``sol``) or
+    float64 (complex128). ``bd`` (birth/death) is always None until that
+    resampling is ported (ROADMAP queue 1, item 5)."""
 
     sol: torch.Tensor
     clock: Clock
@@ -72,8 +77,6 @@ def _not_ported(what: str, item: str):
 
 
 def _check_ray_method(ray_method: str) -> None:
-    if ray_method == "midpoint":
-        raise _not_ported("ray_method='midpoint'", "item 15")
     if ray_method not in RAY_METHODS:
         raise ValueError(f"unknown ray_method {ray_method!r}; available: {RAY_METHODS}")
 
@@ -90,6 +93,7 @@ def make_coupled_frame(
     k0: float | None = None,
     frozen_flow: bool = False,
     dt: float | None = None,
+    remat: bool = False,
     ray_opts: dict | None = None,
     ray_info_fn: Callable | None = None,
 ):
@@ -97,10 +101,14 @@ def make_coupled_frame(
 
     ``psih_fn(sol) -> psih`` extracts the advecting streamfunction. With
     ``frozen_flow`` only the clock advances (by ``dt``) and the packets
-    trace the fixed fields. ``ray_opts`` go to ``raytrace_adaptive`` for the
-    adaptive methods (rtol, atol, max_steps, init_substeps, loop, pair);
-    ``ray_info_fn``, if given, is called with the info dict of each flow
-    step's adaptive integration."""
+    trace the fixed fields. ``remat=True`` checkpoints each interleaved
+    step (``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint``): the backward pass recomputes a step instead of
+    keeping its intermediates. ``ray_opts`` go to ``raytrace_adaptive`` for
+    the adaptive methods (rtol, atol, max_steps, init_substeps, loop,
+    pair); ``ray_info_fn``, if given, is called with the info dict of each
+    flow step's adaptive integration (once, not again when a checkpointed
+    step is recomputed)."""
     _check_ray_method(ray_method)
     check_ray_params(rp)
     if frozen_flow and dt is None:
@@ -114,34 +122,42 @@ def make_coupled_frame(
     if adaptive:
         ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
 
+    def one(sol, clock, sstate, packets, fields_old, T_old):
+        """One interleaved flow/ray step -> the next carry and the adaptive
+        info (None for the fixed-step methods)."""
+        t0, info = clock.t, None
+        if frozen_flow:
+            clock = Clock(clock.t + dt, clock.step + 1)
+            fields, T_new = fields_old, T_old
+        else:
+            sol, clock, sstate = step_fn(sol, clock, sstate)
+            fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+            T_new = build_patch_table(fields, rp.interp) if use_patch else None
+        if adaptive:
+            packets, info = raytrace_adaptive(packets, fields_old, fields, t0, clock.t, rp,
+                                              **ray_opts)
+        elif use_patch:
+            packets = raytrace_tables_fb(packets, make_pair_table(T_old, T_new, rp.table_dtype),
+                                         fields_old, fields, t0, clock.t, rp, ny, nx,
+                                         nsubsteps=ray_substeps, method=ray_method)
+        else:
+            packets = raytrace(packets, fields_old, fields, t0, clock.t, rp,
+                               nsubsteps=ray_substeps, method=ray_method)
+        if k_cutoff is not None:
+            packets = k_cutoff_reset(packets, k_cutoff, k0)
+        return (sol, clock, sstate, packets, fields, T_new), info
+
     def frame(sim: SimState) -> SimState:
-        sol, clock, sstate, packets = sim.sol, sim.clock, sim.stepper_state, sim.packets
-        fields = sim.fields
-        T_old = build_patch_table(fields, rp.interp) if use_patch else None
+        T0 = build_patch_table(sim.fields, rp.interp) if use_patch else None
+        carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0)
         for _ in range(flow_steps):
-            t0, fields_old = clock.t, fields
-            if frozen_flow:
-                clock = Clock(clock.t + dt, clock.step + 1)
-                T_new = T_old
+            if remat:
+                carry, info = checkpoint(one, *carry, use_reentrant=False)
             else:
-                sol, clock, sstate = step_fn(sol, clock, sstate)
-                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
-                T_new = build_patch_table(fields, rp.interp) if use_patch else None
-            if adaptive:
-                packets, info = raytrace_adaptive(packets, fields_old, fields, t0,
-                                                  clock.t, rp, **ray_opts)
-                if ray_info_fn is not None:
-                    ray_info_fn(info)
-            elif use_patch:
-                T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
-                packets = raytrace_tables(packets, T_pair, t0, clock.t, rp, ny, nx,
-                                          nsubsteps=ray_substeps, method=ray_method)
-            else:
-                packets = raytrace(packets, fields_old, fields, t0, clock.t, rp,
-                                   nsubsteps=ray_substeps, method=ray_method)
-            if k_cutoff is not None:
-                packets = k_cutoff_reset(packets, k_cutoff, k0)
-            T_old = T_new
+                carry, info = one(*carry)
+            if info is not None and ray_info_fn is not None:
+                ray_info_fn(info)
+        sol, clock, sstate, packets, fields, _ = carry
         return SimState(sol, clock, sstate, packets, fields, None)
 
     return frame
@@ -174,9 +190,12 @@ class CoupledDriver:
     adaptive integrations (``raytrace_adaptive``), in order; it stays empty
     for the fixed-step ray methods.
 
+    ``remat=True`` checkpoints each coupled step of a frame for the
+    backward pass (``make_coupled_frame``).
+
     Options whose code is not ported yet raise NotImplementedError naming
-    the ROADMAP item: ray_method='midpoint', remat, birth/death, the
-    writers, diagnostics and the live dashboard.
+    the ROADMAP item: birth/death, the writers, diagnostics and the live
+    dashboard.
     """
 
     model: Model
@@ -203,16 +222,14 @@ class CoupledDriver:
 
     def __post_init__(self):
         _check_ray_method(self.ray_method)
-        if self.remat:
-            raise _not_ported("remat", "item 14")
         if self.birth_death:
-            raise _not_ported("birth/death resampling", "item 16")
+            raise _not_ported("birth/death resampling", "item 5")
         if self.snapshot_writer is not None or self.packet_writer is not None:
-            raise _not_ported("snapshot/packet writers", "item 21")
+            raise _not_ported("snapshot/packet writers", "item 11")
         if self.diagnostics:
             raise _not_ported("diagnostics", "item 11")
         if self.live is not None:
-            raise _not_ported("the live dashboard", "item 23")
+            raise _not_ported("the live dashboard", "item 12")
         check_ray_params(self.rp)
         self._init_fn, self._step_fn = build_stepper(
             self.model, self.stepper, self.dt, self.use_filter,
@@ -243,7 +260,7 @@ class CoupledDriver:
                 self._frame_cache[key] = make_coupled_frame(
                     self.model, self._step_fn, self.psih_fn, self.rp,
                     flow_steps, self.ray_substeps, self.ray_method,
-                    self.k_cutoff, self.k0, self.frozen_flow, self.dt,
+                    self.k_cutoff, self.k0, self.frozen_flow, self.dt, self.remat,
                     self.ray_opts, self.ray_infos.append,
                 )
             else:

@@ -18,15 +18,16 @@ def _grid_np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy().astype(np.float64)
 
 
-def random_band_psih(grid, rng, kband=(2, 6), amp=0.1):
+def random_band_psih(grid, rng, kband=(2, 6), amp=0.1, dtype=torch.float32):
     """Band-limited random streamfunction spectrum, normalised so the max
-    physical |psi| equals amp."""
+    physical |psi| equals amp; ``dtype`` is the physical field's."""
     K = np.sqrt(grid.Krsq.cpu().numpy())
     mask = (K >= kband[0]) & (K <= kband[1])
     psih = mask * np.exp(1j * rng.uniform(0, 2 * np.pi, K.shape))
     psi = np.fft.irfft2(psih, s=(grid.ny, grid.nx))
     psi *= amp / max(np.abs(psi).max(), 1e-30)
-    return rfft2(torch.as_tensor(psi.astype(np.float32), device=grid.device))
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
+    return rfft2(torch.as_tensor(psi.astype(np_dtype), device=grid.device))
 
 
 def band_geo_wave_ic(grid, rng, Kg=(10, 13), Kw=(0, 5), ag=1.5, aw=0.1,

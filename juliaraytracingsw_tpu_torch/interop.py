@@ -6,7 +6,9 @@ The keys are the reference ``SimState``'s fields: ``sol``, ``clock.t``,
 ``fields``. ``sim_state_to_numpy`` reads any object with that structure
 whose leaves ``np.asarray`` understands (so also the JAX package's state,
 without importing JAX here) as well as this package's tensors;
-``sim_state_from_numpy`` builds this package's ``SimState`` on a device.
+``sim_state_from_numpy`` builds this package's ``SimState`` on a device, in
+single precision (complex64, float32) unless an array is double (complex128,
+float64), which keeps its precision.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ def sim_state_to_numpy(sim) -> dict:
     """Flatten a SimState (this package's or the reference's) to numpy."""
     if getattr(sim, "bd", None) is not None:
         raise NotImplementedError(
-            "birth/death state is not carried across (ROADMAP queue 1, item 16)")
+            "birth/death state is not carried across (ROADMAP queue 1, item 5)")
     d = {
         "sol": _np(sim.sol),
         "clock.t": _np(sim.clock.t),
@@ -49,14 +51,21 @@ def sim_state_to_numpy(sim) -> dict:
 def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> SimState:
     """Build this package's SimState (IF-AB3 stepper state) on ``device``."""
 
-    def t(key, dtype):
-        return torch.as_tensor(np.array(d[key], dtype, copy=True), device=device)
+    def t(key, single, double):
+        a = np.asarray(d[key])
+        dtype = double if a.dtype == double else single
+        return torch.as_tensor(np.array(a, dtype, copy=True), device=device)
+
+    def c(key):
+        return t(key, np.complex64, np.complex128)
+
+    def r(key):
+        return t(key, np.float32, np.float64)
 
     return SimState(
-        sol=t("sol", np.complex64),
-        clock=Clock(t("clock.t", np.float32).reshape(()), int(d["clock.step"])),
-        stepper_state=AB3State(t("stepper_state.N1", np.complex64),
-                               t("stepper_state.N2", np.complex64)),
-        packets=Packets(*(t(f"packets.{n}", np.float32) for n in _PACKET_FIELDS)),
-        fields=t("fields", np.float32),
+        sol=c("sol"),
+        clock=Clock(r("clock.t").reshape(()), int(d["clock.step"])),
+        stepper_state=AB3State(c("stepper_state.N1"), c("stepper_state.N2")),
+        packets=Packets(*(r(f"packets.{n}") for n in _PACKET_FIELDS)),
+        fields=r("fields"),
     )

@@ -10,6 +10,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core import steppers as _steppers
 from ..core.filters import make_filter
@@ -32,7 +33,7 @@ class Model:
 
 
 # the reference's ETDAB3 is the same scheme as IFMAB3; the other steppers
-# of the JAX registry are not ported yet (ROADMAP queue 1, item 18)
+# of the JAX registry are not ported yet (ROADMAP queue 1, item 7)
 STEPPERS = {
     "IFMAB3": _steppers.make_ifab3,
     "ETDAB3": _steppers.make_ifab3,
@@ -57,8 +58,17 @@ def build_stepper(
     return factory(model.L, model.calcN, dt, filt)
 
 
-def run(step_fn, sol, clock: Clock, state, nsteps: int):
-    """Advance ``nsteps`` steps in a Python loop."""
+def run(step_fn, sol, clock: Clock, state, nsteps: int, remat: bool = False):
+    """Advance ``nsteps`` steps in a Python loop.
+
+    ``remat=True`` checkpoints each step for the backward pass
+    (``torch.utils.checkpoint``, the counterpart of the reference's
+    ``jax.checkpoint`` of its scan body): a step keeps only its inputs and
+    is recomputed when the gradient reaches it, so gradients through long
+    horizons fit in device memory."""
     for _ in range(nsteps):
-        sol, clock, state = step_fn(sol, clock, state)
+        if remat:
+            sol, clock, state = checkpoint(step_fn, sol, clock, state, use_reentrant=False)
+        else:
+            sol, clock, state = step_fn(sol, clock, state)
     return sol, clock, state

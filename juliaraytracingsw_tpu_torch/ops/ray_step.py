@@ -33,6 +33,23 @@ The table forms take the pair table ``T_pair (ny*nx, 2W)`` as
 themselves, as ``rays/raytrace._gather_patch_rows`` does, and give the same
 outputs. Their twins are that gather, the transpose and the first cut's
 twin: the ray path's computation on the CPU.
+
+The substep is differentiable, as the reference's ``make_fused_substep``
+is through its custom VJP. ``table_substep`` and ``fused_substep`` run
+through the ``torch.autograd.Function``s ``TableSubstep`` and
+``FusedSubstep``: the forward is the kernel on the card and the twin on
+the CPU; the backward, on both devices, recomputes the per-stage
+formulation (``rays/raytrace._gather_patch_rows`` for the table form,
+``_patch_sampler_from_rows`` and ``_step(..., "rk4")`` on ``(N, 2W)``
+rows) under autograd and returns its VJP, so cotangents reach ``T_pair``
+(through ``index_select``'s backward, in the table's own dtype),
+``rows_T``, ``st`` and ``scal`` (``h``, and through it ``t0`` and ``t1``).
+The backward is plain PyTorch and no hand-written kernel: the reference's
+is plain XLA outside its Pallas kernel too. On the CPU the twins also take
+float64 ``st`` and ``scal`` (the float64 gradient checks); the CUDA kernels
+take float32 and raise for anything else. The attempt is forward only, as
+in the reference: its wrappers raise when an input requires grad on the
+card.
 """
 from __future__ import annotations
 
@@ -42,11 +59,11 @@ import torch
 
 from ..rays.patch import PATCH_SHAPES
 
-__all__ = ["RK4_STAGES", "RK4_B", "attempt_launches", "attempt_torch",
-           "first_cut_inputs", "fused_attempt", "fused_substep", "launches", "n_channels",
-           "reset_launches", "substep_cfg", "substep_torch", "table_attempt",
-           "table_attempt_launches", "table_attempt_torch", "table_launches",
-           "table_substep", "table_substep_torch"]
+__all__ = ["RK4_STAGES", "RK4_B", "FusedSubstep", "TableSubstep", "attempt_launches",
+           "attempt_torch", "first_cut_inputs", "fused_attempt", "fused_substep",
+           "launches", "n_channels", "recompute_vjp", "reset_launches", "substep_cfg",
+           "substep_torch", "table_attempt", "table_attempt_launches",
+           "table_attempt_torch", "table_launches", "table_substep", "table_substep_torch"]
 
 RK4_STAGES = ((0.0, ()), (0.5, (0.5,)), (0.5, (0.0, 0.5)),
               (1.0, (0.0, 0.0, 1.0)))
@@ -335,6 +352,7 @@ def table_attempt_torch(T_pair, st, scal, *, rp, interp, ny, nx):
 # --- the kernel wrappers -----------------------------------------------------
 
 _F32 = (torch.float32,)
+_REAL = (torch.float32, torch.float64)
 
 
 def _kernel_fn(name: str, head: list, n_floats: int):
@@ -364,11 +382,12 @@ def _pair_width(interp: str) -> int:
     return 2 * n_channels(interp) * ph * pw
 
 
-def _runs_on_cpu(specs, *, name: str) -> bool:
+def _runs_on_cpu(specs, *, name: str, backward: bool = False) -> bool:
     """Validate a kernel's inputs, ``specs`` = (arg, tensor, shape, dtypes)
     with the device-setting tensor first: True when they lie on the CPU
     (the twin's case), False on the card (the kernel's case); raise
-    otherwise."""
+    otherwise. The CUDA kernels take no float64; a kernel without a
+    ``backward`` refuses inputs that require grad on the card."""
     ref_arg, ref = specs[0][:2]
     for arg, t, shape, dtypes in specs:
         if t.dtype not in dtypes:
@@ -384,24 +403,27 @@ def _runs_on_cpu(specs, *, name: str) -> bool:
         return True
     if ref.device.type != "cuda":
         raise RuntimeError(f"{name} runs on CPU or CUDA tensors, not {ref.device.type}")
-    if any(t.requires_grad for _, t, _, _ in specs):
+    for arg, t, _, _ in specs:
+        if t.dtype == torch.float64:
+            raise TypeError(f"the CUDA {name} takes float32 {arg}, got float64 "
+                            "(float64 runs on the CPU twin only)")
+    if not backward and any(t.requires_grad for _, t, _, _ in specs):
         raise NotImplementedError(
-            f"the CUDA {name} has no backward (the substep's is ROADMAP queue 1, "
-            "item 14: autograd.Function around the kernel; the attempt is "
-            "forward only, as in the reference)")
+            f"the CUDA {name} has no backward: it is forward only, as in the "
+            "reference")
     return False
 
 
-def _fused_specs(rows_T, st, scal, interp: str, n_scal: int):
+def _fused_specs(rows_T, st, scal, interp: str, n_scal: int, real=_F32):
     n = st.shape[-1]
     return (("rows_T", rows_T, (_pair_width(interp), n), _F32),
-            ("st", st, (7, n), _F32), ("scal", scal, (n_scal,), _F32))
+            ("st", st, (7, n), real), ("scal", scal, (n_scal,), real))
 
 
-def _table_specs(T_pair, st, scal, interp: str, n_scal: int, ny: int, nx: int):
+def _table_specs(T_pair, st, scal, interp: str, n_scal: int, ny: int, nx: int, real=_F32):
     n = st.shape[-1]
     return (("T_pair", T_pair, (ny * nx, _pair_width(interp)), tuple(_TABLE_DTYPE_ID)),
-            ("st", st, (5, n), _F32), ("scal", scal, (n_scal,), _F32))
+            ("st", st, (5, n), real), ("scal", scal, (n_scal,), real))
 
 
 def _launch(fn, args, st, scal, out, floats) -> None:
@@ -436,20 +458,116 @@ def _attempt_floats(rp) -> tuple:
     return (rp.x0, rp.y0, rp.dx, rp.dy, rp.f * rp.f, rp.Cg * rp.Cg)
 
 
+# --- the substep's backward: the per-stage formulation under autograd ----------
+
+def _per_stage_substep(rows, p, bx, by, scal, rp, da):
+    """The reference's backward formulation of one RK4 substep: the
+    per-stage sampler over ``(N, 2W)`` rows and ``_step(..., "rk4")`` ->
+    ``(4, N)``."""
+    from ..rays.raytrace import _patch_sampler_from_rows, _step
+
+    out = _step(p, _patch_sampler_from_rows(rows, bx, by, rp), scal[0], da, scal[1], rp,
+                "rk4")
+    return torch.stack([out.x, out.y, out.k, out.l])
+
+
+def recompute_vjp(saved, needs, g, formulation):
+    """The backward of an ``autograd.Function`` by recomputation: the
+    cotangents (None where ``needs`` is False) of the ``saved`` inputs from
+    ``formulation`` of fresh leaves of them, recomputed under autograd, and
+    its VJP at the output cotangent(s) ``g``."""
+    leaves = [t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = iter(())
+    if wanted:
+        with torch.enable_grad():
+            out = formulation(*leaves)
+            grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+class TableSubstep(torch.autograd.Function):
+    """``table_substep`` with the reference's backward:
+    ``(T_pair, st (5, N), scal (2,)) -> (4, N)``. Forward: the table kernel
+    on the card (one table launch), its twin on the CPU. Backward: the row
+    gather, the per-stage sampler and ``_step(..., "rk4")`` recomputed and
+    differentiated (``T_pair``'s cotangent through ``index_select``'s
+    backward, accumulated in the table's dtype)."""
+
+    @staticmethod
+    def forward(ctx, T_pair, st, scal, rp, interp, da, ny, nx, on_cpu):
+        ctx.save_for_backward(T_pair, st, scal)
+        ctx.cfg = (rp._replace(interp=interp), da, ny, nx)
+        if on_cpu:
+            return table_substep_torch(T_pair, st, scal, rp=rp, interp=interp, da=da, ny=ny,
+                                       nx=nx)
+        out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
+        _launch(_kernel_fn("jrsw_ray_step_table", _TABLE_HEAD, 10),
+                _table_args(interp, T_pair, ny, nx), st, scal, out, _substep_floats(rp, da))
+        table_launches[interp] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..rays.packets import Packets
+        from ..rays.raytrace import _gather_patch_rows
+
+        rp, da, ny, nx = ctx.cfg
+
+        def formulation(T_pair, st, scal):
+            p = Packets(*st.unbind(0))
+            rows, bx, by = _gather_patch_rows(T_pair, p, rp, ny, nx)
+            return _per_stage_substep(rows, p, bx, by, scal, rp, da)
+
+        return (*recompute_vjp(ctx.saved_tensors, ctx.needs_input_grad, g, formulation),
+                None, None, None, None, None, None)
+
+
+class FusedSubstep(torch.autograd.Function):
+    """``fused_substep`` with the reference's backward (its custom VJP,
+    ``ops/pallas_ray_step.make_fused_substep``):
+    ``(rows_T (2W, N), st (7, N), scal (2,)) -> (4, N)``. Forward: the
+    first-cut kernel on the card (one launch), its twin on the CPU.
+    Backward: the per-stage formulation on ``rows_T.T``, differentiated."""
+
+    @staticmethod
+    def forward(ctx, rows_T, st, scal, rp, interp, da, on_cpu):
+        ctx.save_for_backward(rows_T, st, scal)
+        ctx.cfg = (rp._replace(interp=interp), da)
+        if on_cpu:
+            return substep_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
+                                 interp=interp, da=da, x0=rp.x0, y0=rp.y0)
+        out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
+        _launch(_kernel_fn("jrsw_ray_step", _FUSED_HEAD, 10),
+                (_INTERP_ID[interp], rows_T.data_ptr()), st, scal, out, _substep_floats(rp, da))
+        launches[interp] += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..rays.packets import Packets
+
+        rp, da = ctx.cfg
+
+        def formulation(rows_T, st, scal):
+            x, y, kk, ll, sgn, bx, by = st.unbind(0)
+            return _per_stage_substep(rows_T.t(), Packets(x, y, kk, ll, sgn), bx, by, scal,
+                                      rp, da)
+
+        return (*recompute_vjp(ctx.saved_tensors, ctx.needs_input_grad, g, formulation),
+                None, None, None, None)
+
+
 def fused_substep(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
                   rp, interp: str, da: float) -> torch.Tensor:
     """One fused RK4 substep, the first cut: ``(2W, N), (7, N), (2,) -> (4, N)``.
 
     CUDA tensors go through the hand-written kernel (and count one launch);
-    CPU tensors go through the plain twin. Anything else raises."""
-    if _runs_on_cpu(_fused_specs(rows_T, st, scal, interp, 2), name="fused substep"):
-        return substep_torch(rows_T, st, scal, cfg=substep_cfg(rp, interp),
-                             interp=interp, da=da, x0=rp.x0, y0=rp.y0)
-    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
-    _launch(_kernel_fn("jrsw_ray_step", _FUSED_HEAD, 10),
-            (_INTERP_ID[interp], rows_T.data_ptr()), st, scal, out, _substep_floats(rp, da))
-    launches[interp] += 1
-    return out
+    CPU tensors go through the plain twin (float32 or float64 ``st`` and
+    ``scal``). Differentiable (``FusedSubstep``). Anything else raises."""
+    on_cpu = _runs_on_cpu(_fused_specs(rows_T, st, scal, interp, 2, _REAL),
+                          name="fused substep", backward=True)
+    return FusedSubstep.apply(rows_T, st, scal, rp, interp, da, on_cpu)
 
 
 def fused_attempt(rows_T: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
@@ -476,15 +594,12 @@ def table_substep(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
     ``(ny*nx, 2W) f32|bf16, (5, N), (2,) -> (4, N)``.
 
     CUDA tensors go through the hand-written kernel (and count one table
-    launch); CPU tensors go through the plain twin. Anything else raises."""
-    if _runs_on_cpu(_table_specs(T_pair, st, scal, interp, 2, ny, nx), name="table substep"):
-        return table_substep_torch(T_pair, st, scal, rp=rp, interp=interp, da=da, ny=ny,
-                                   nx=nx)
-    out = torch.empty((4, st.shape[-1]), dtype=torch.float32, device=st.device)
-    _launch(_kernel_fn("jrsw_ray_step_table", _TABLE_HEAD, 10),
-            _table_args(interp, T_pair, ny, nx), st, scal, out, _substep_floats(rp, da))
-    table_launches[interp] += 1
-    return out
+    launch); CPU tensors go through the plain twin (float32 or float64
+    ``st`` and ``scal``). Differentiable (``TableSubstep``). Anything else
+    raises."""
+    on_cpu = _runs_on_cpu(_table_specs(T_pair, st, scal, interp, 2, ny, nx, _REAL),
+                          name="table substep", backward=True)
+    return TableSubstep.apply(T_pair, st, scal, rp, interp, da, ny, nx, on_cpu)
 
 
 def table_attempt(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,

@@ -1,6 +1,7 @@
 """Wave-packet ensembles as structure-of-arrays (port of ``rays/packets.py``).
 
-Packets are a NamedTuple of 1-D float32 tensors [x, y, k, l, sign].
+Packets are a NamedTuple of 1-D tensors [x, y, k, l, sign], float32 unless
+asked.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ def lattice_packets(
     k0: float,
     alternate_sign: bool = True,
     k_ring: bool = False,
+    dtype: torch.dtype = torch.float32,
     x0: float | None = None,
     y0: float | None = None,
     *,
@@ -58,10 +60,12 @@ def lattice_packets(
         kx = np.full((N,), k0)
         ky = np.zeros((N,))
 
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32).reshape(N), device=device)
+    np_dtype = torch.empty((), dtype=dtype).numpy().dtype
 
-    return Packets(x=f32(X), y=f32(Y), k=f32(kx), l=f32(ky), sign=f32(S))
+    def real(a):
+        return torch.as_tensor(np.asarray(a, np_dtype).reshape(N), device=device)
+
+    return Packets(x=real(X), y=real(Y), k=real(kx), l=real(ky), sign=real(S))
 
 
 def packets_to_array(p: Packets) -> torch.Tensor:

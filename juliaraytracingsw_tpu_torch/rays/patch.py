@@ -6,8 +6,9 @@ holds the full ``ph x pw`` neighbourhood of cell ``c`` for every field, so a
 substep needs one row gather per packet and every RK stage interpolates
 locally from that row. ``patch_interpolate_pair_shared`` is that local
 interpolation over the gathered (old|new) pair rows, the reference's
-default ``pairsplit`` form; its ``mxu`` and ``conv`` TPU variants are not
-ported.
+default ``pairsplit`` form; ``patch_interpolate`` evaluates one time level
+(the reference's ``split`` form, kept as the oracle the pair form is held
+against). The ``mxu`` and ``conv`` TPU variants are not ported.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from .interp import _bspline_w
 
-__all__ = ["PATCH_SHAPES", "build_patch_table", "patch_interpolate_pair_shared"]
+__all__ = ["PATCH_SHAPES", "build_patch_table", "patch_interpolate",
+           "patch_interpolate_pair_shared"]
 
 # interp method -> (patch height, patch width, lo offset of the tap grid);
 # the windows cover local offsets in [-1, 2) exactly
@@ -97,6 +99,43 @@ def _hermite_block_weights(local_x, local_y, deriv_scale):
     return ((wyv, wxv), (wyv, wxd), (wyd, wxv), (wyd, wxd))
 
 
+def _separable_weights(local_x, local_y, method: str):
+    """(wx, wy) per-axis tap weights, ``(N, pw)`` and ``(N, ph)``."""
+    ph, pw, lo = PATCH_SHAPES[method]
+    if method == "bilinear":
+        return _axis_weights_bilinear(local_x, pw, lo), _axis_weights_bilinear(local_y, ph, lo)
+    if method == "bspline":
+        return _axis_weights_bspline(local_x, pw, lo), _axis_weights_bspline(local_y, ph, lo)
+    raise ValueError(f"unknown patch interp {method!r}")
+
+
+def patch_interpolate(patches, local_x, local_y, method: str = "bilinear",
+                      deriv_scale=(1.0, 1.0)):
+    """Evaluate all fields of one time level from gathered patch rows.
+
+    patches (N, F*ph*pw) rows of ``build_patch_table``; local_x/y (N,)
+    offsets from each packet's base cell. Returns (F, N), F//4 rows for the
+    bicubic [f|fx|fy|fxy] layout, whose derivative channels need
+    ``deriv_scale=(dx, dy)``."""
+    ph, pw, _ = PATCH_SHAPES[method]
+    N = patches.shape[0]
+    F = patches.shape[1] // (ph * pw)
+    P = patches.reshape(N, F, ph, pw)
+    if method == "bicubic":
+        Pb = P.reshape(N, 4, F // 4, ph, pw)
+        out = None
+        for b, (wy, wx) in enumerate(
+                _hermite_block_weights(local_x, local_y, deriv_scale)):
+            v = torch.sum(Pb[:, b] * wx[:, None, None, :], dim=3)
+            v = torch.sum(v * wy[:, None, :], dim=2)
+            out = v if out is None else out + v
+        return out.t()                                        # (F/4, N)
+    wx, wy = _separable_weights(local_x, local_y, method)
+    v = torch.sum(P * wx[:, None, None, :], dim=3)
+    v = torch.sum(v * wy[:, None, :], dim=2)
+    return v.t()                                              # (F, N)
+
+
 def patch_interpolate_pair_shared(rows_pair, local_x, local_y, a,
                                   method: str = "bilinear",
                                   deriv_scale=(1.0, 1.0)):
@@ -107,7 +146,7 @@ def patch_interpolate_pair_shared(rows_pair, local_x, local_y, a,
     base cell; a the blend (0 -> old, 1 -> new). Returns (F, N), F//4 rows
     for the bicubic [f|fx|fy|fxy] layout, whose derivative channels need
     ``deriv_scale=(dx, dy)``."""
-    ph, pw, lo = PATCH_SHAPES[method]
+    ph, pw, _ = PATCH_SHAPES[method]
     N = rows_pair.shape[0]
     F = rows_pair.shape[1] // (2 * ph * pw)
     P = rows_pair.reshape(N, 2, F, ph, pw)
@@ -120,14 +159,7 @@ def patch_interpolate_pair_shared(rows_pair, local_x, local_y, a,
             v = torch.sum(v * wy[:, None, None, :], dim=3)    # (N, 2, F/4)
             out = v if out is None else out + v
     else:
-        if method == "bilinear":
-            wx = _axis_weights_bilinear(local_x, pw, lo)
-            wy = _axis_weights_bilinear(local_y, ph, lo)
-        elif method == "bspline":
-            wx = _axis_weights_bspline(local_x, pw, lo)
-            wy = _axis_weights_bspline(local_y, ph, lo)
-        else:
-            raise ValueError(f"unknown patch interp {method!r}")
+        wx, wy = _separable_weights(local_x, local_y, method)
         out = torch.sum(P * wx[:, None, None, None, :], dim=4)
         out = torch.sum(out * wy[:, None, None, :], dim=3)    # (N, 2, F)
     v = (1.0 - a) * out[:, 0] + a * out[:, 1]

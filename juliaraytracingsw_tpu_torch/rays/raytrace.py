@@ -24,24 +24,35 @@ Integrators:
 - ``raytrace_tables`` / ``raytrace``: fixed steps. RK4 on the patch path
   runs the fused substep over the pair table (``ops/ray_step.table_substep``:
   the CUDA kernel on the card, which reads the table rows itself; its twin
-  on the CPU); DP5 and the taps path run the per-stage ``_step``.
+  on the CPU; differentiable through ``TableSubstep``); DP5, implicit
+  midpoint and the taps path run the per-stage ``_step``.
+- implicit midpoint (``method='midpoint'``): a converged fixed-point solve
+  of the midpoint slope, differentiated implicitly (``_ImplicitRoot``, the
+  counterpart of the reference's ``lax.custom_root``), never through its
+  iterations.
+- ``raytrace_tables_fb``: ``raytrace_tables`` whose backward is chosen by
+  ``JRSW_PATCH_BWD``: 'table' (default, autograd through the table path)
+  or 'taps' (autograd through the taps path at the same inputs).
 - ``raytrace_adaptive``: embedded Dormand-Prince 5(4) or Fehlberg 7(8)
   with one shared step size. With the patch gather, pair 'dopri5' and
   loop 'while' each attempt is the fused attempt over the pair table
-  (``ops/ray_step.table_attempt``); every other combination runs the
-  per-stage attempt.
+  (``ops/ray_step.table_attempt``, forward only); every other combination
+  runs the per-stage attempt.
 
-Not ported: implicit midpoint and ``gather='auto'`` (ROADMAP queue 1,
-items 15 and 13).
+Times ``t0``, ``t1`` and the substep ``h`` take the packets' dtype
+(float32, or float64 for the gradient checks on the CPU).
+
+Not ported: ``gather='auto'`` (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
 
 from ..core.spectral import irfft2, spectral_gradients
-from ..ops.ray_step import table_attempt, table_substep
+from ..ops.ray_step import recompute_vjp, table_attempt, table_substep
 from .dispersion import group_velocity
 from .interp import bspline_prefilter_mask, interpolate
 from .packets import Packets
@@ -57,6 +68,7 @@ __all__ = [
     "raytrace",
     "raytrace_adaptive",
     "raytrace_tables",
+    "raytrace_tables_fb",
     "sample_gradients",
     "sample_velocity",
 ]
@@ -75,6 +87,10 @@ class RayParams(NamedTuple):
     dy: float
     interp: str = "bilinear"   # 'bilinear' | 'bspline' | 'bicubic'
     gather: str = "patch"      # 'patch' | 'taps' ('auto' is not ported)
+    # implicit midpoint (method 'midpoint'): the fixed-point solve iterates
+    # until the residual drops below 1e-8 + rtol |z| or maxit iterations
+    midpoint_rtol: float = 1e-6
+    midpoint_maxit: int = 20
     # storage dtype of the pair table ('float32' | 'bfloat16'); stage math
     # always upcasts the gathered rows to float32
     table_dtype: str = "float32"
@@ -87,7 +103,7 @@ def check_ray_params(rp: RayParams) -> None:
     if rp.gather == "auto":
         raise NotImplementedError(
             "gather='auto' is not ported: its patch-vs-taps crossover must be "
-            "measured on the H100 (ROADMAP queue 1, item 13); pass 'patch' or 'taps'")
+            "measured on the H100 (ROADMAP queue 1, item 4); pass 'patch' or 'taps'")
     if rp.gather not in ("patch", "taps"):
         raise ValueError(f"unknown gather {rp.gather!r}; available: ['patch', 'taps']")
     if rp.interp not in PATCH_SHAPES:
@@ -153,12 +169,12 @@ def _make_taps_sampler(fields_old, fields_new, rp: RayParams):
 
 
 def _cell_floor(v, origin: float, step: float):
-    """floor((v - origin) / step) in IEEE float32, origin and step each
-    rounded once to float32. The divisor is a tensor on v's device: PyTorch
-    on CUDA divides by a Python scalar as a product with its float32
-    reciprocal, which can differ by an ulp and, at a cell face, by a cell."""
-    return torch.floor((v - origin) / torch.full((), step, dtype=torch.float32,
-                                                 device=v.device))
+    """floor((v - origin) / step) in IEEE arithmetic of v's dtype, origin
+    and step each rounded once to it. The divisor is a tensor on v's
+    device: PyTorch on CUDA divides by a Python scalar as a product with its
+    float32 reciprocal, which can differ by an ulp and, at a cell face, by a
+    cell. The floor gives no gradient, as the reference's does not."""
+    return torch.floor((v - origin) / torch.full((), step, dtype=v.dtype, device=v.device))
 
 
 def _gather_patch_rows(T_pair, p: Packets, rp: RayParams, ny: int, nx: int):
@@ -278,10 +294,78 @@ def _step(p: Packets, sample, a0, da, h, rp: RayParams, method: str) -> Packets:
             ks.append(_rhs(q, sample, a0 + ci * da, rp))
         return _lincomb(p, ks, _DP_B, h)
     if method == "midpoint":
-        raise NotImplementedError(
-            "ray method 'midpoint' is not ported: its converged implicit "
-            "solve waits for the gradient port (ROADMAP queue 1, item 15)")
+        return _midpoint_step(p, sample, a0, da, h, rp)
     raise ValueError(f"unknown ray integrator {method!r}")
+
+
+# implicit midpoint: terms of the Neumann series of the tangent solve
+_NEUMANN_TERMS = 8
+
+
+class _ImplicitRoot(torch.autograd.Function):
+    """The converged midpoint slope ``z* = G(z*)`` with the reference's
+    implicit VJP (``lax.custom_root`` with its Neumann ``tangent_solve``).
+
+    ``apply(lin, z_star, *gz)``: ``z_star`` the solve's result (values
+    only), ``gz = G(zl)`` evaluated at leaves ``zl`` holding ``z_star``,
+    ``lin = (zl, gz)``. Returns ``z_star``. The backward maps the cotangent
+    ``c`` to ``w = sum_{j=0..8} (J^T)^j c`` (J = dG/dz at z*), the
+    transpose of the reference's 8-step Neumann solve of (I - J) u = v,
+    and hands ``w`` to ``gz``, whose graph carries it to whatever G reads
+    (fields, rows, positions, h). No iteration of the solve is
+    differentiated."""
+
+    @staticmethod
+    def forward(ctx, lin, z_star, *gz):
+        ctx.lin = lin
+        return tuple(z.clone() for z in z_star)
+
+    @staticmethod
+    def backward(ctx, *c):
+        zl, gz = ctx.lin
+        w = c
+        for _ in range(_NEUMANN_TERMS):
+            jt = torch.autograd.grad(gz, zl, w, retain_graph=True)
+            w = tuple(a + b for a, b in zip(c, jt))
+        return (None, None, *w)
+
+
+def _midpoint_step(p: Packets, sample, a0, da, h, rp: RayParams) -> Packets:
+    """Implicit midpoint, solved as a converged fixed point of the midpoint
+    slope z = G(z) = rhs(p + h/2 z) at a0 + da/2: iterate z <- G(z) from
+    z = rhs(p) until the batch-max residual |z - G(z)| / (1e-8 + rtol |z|)
+    is at most 1, or ``midpoint_maxit`` iterations (the host reads the
+    residual after each). The iterations build no graph; gradients come
+    from ``_ImplicitRoot``."""
+    am = a0 + 0.5 * da
+
+    def G(z):
+        mid = Packets(p.x + 0.5 * h * z[0], p.y + 0.5 * h * z[1], p.k + 0.5 * h * z[2],
+                      p.l + 0.5 * h * z[3], p.sign)
+        d = _rhs(mid, sample, am, rp)
+        return (d.x, d.y, d.k, d.l)
+
+    def resid(fz, z):
+        return torch.stack([torch.max(e.abs() / (1e-8 + rp.midpoint_rtol * zi.abs()))
+                            for e, zi in zip(fz, z)]).max()
+
+    d0 = _rhs(p, sample, am, rp)
+    z = tuple(v.detach() for v in (d0.x, d0.y, d0.k, d0.l))
+    gz = G(z)
+    # G reads something that needs a gradient (fields, rows, packets, h)
+    needs_grad = any(v.requires_grad for v in gz)
+    with torch.no_grad():
+        fz = tuple(a - b for a, b in zip(z, gz))
+        i = 0
+        while i < rp.midpoint_maxit and bool(resid(fz, z) > 1.0):
+            z = tuple(a - b for a, b in zip(z, fz))
+            fz = tuple(a - b for a, b in zip(z, G(z)))
+            i += 1
+    if needs_grad:
+        zl = tuple(v.clone().requires_grad_() for v in z)
+        gz = G(zl)
+        z = _ImplicitRoot.apply((zl, gz), z, *gz)
+    return Packets(p.x + h * z[0], p.y + h * z[1], p.k + h * z[2], p.l + h * z[3], p.sign)
 
 
 def _use_patch(rp: RayParams) -> bool:
@@ -290,22 +374,27 @@ def _use_patch(rp: RayParams) -> bool:
 
 # --- fixed-step integration --------------------------------------------------
 
-def _as_time(t, device) -> torch.Tensor:
-    return torch.as_tensor(t, dtype=torch.float32, device=device)
+def _as_time(t, like: torch.Tensor) -> torch.Tensor:
+    """A time as a 0-d tensor of the packets' dtype on their device."""
+    return torch.as_tensor(t, dtype=like.dtype, device=like.device)
+
+
+def _substep_start(i: int, da: float, like: torch.Tensor) -> torch.Tensor:
+    """a0 = i * da as a product in the packets' dtype, as the reference's
+    traced ``i * da``."""
+    return torch.full((), float(i), dtype=like.dtype, device=like.device) * da
 
 
 def _raytrace_taps(packets, fields_old, fields_new, t0, t1, rp: RayParams,
                    nsubsteps: int, method: str) -> Packets:
     """Reference-semantics path: the taps sampler over the time-blended
     field stacks, ``_step`` per substep."""
-    dev = packets.x.device
-    h = (_as_time(t1, dev) - _as_time(t0, dev)) / nsubsteps
+    h = (_as_time(t1, packets.x) - _as_time(t0, packets.x)) / nsubsteps
     da = 1.0 / nsubsteps
     sample = _make_taps_sampler(fields_old, fields_new, rp)
     p = packets
     for i in range(nsubsteps):
-        a0 = torch.full((), float(i), dtype=torch.float32, device=dev) * da
-        p = _step(p, sample, a0, da, h, rp, method)
+        p = _step(p, sample, _substep_start(i, da, p.x), da, h, rp, method)
     return p
 
 
@@ -321,19 +410,16 @@ def raytrace_tables(
     method: str = "rk4",
 ) -> Packets:
     """Advance packets from t0 to t1 through a pre-built (old|new) pair
-    table in ``nsubsteps`` fixed substeps. ``t0``/``t1`` are 0-d float32
-    tensors (or floats) on the packets' device. RK4 runs the fused substep
-    over the pair table; DP5 runs the per-stage path."""
+    table in ``nsubsteps`` fixed substeps. ``t0``/``t1`` are 0-d tensors
+    (or floats), taken in the packets' dtype on their device. RK4 runs the
+    fused substep over the pair table (``TableSubstep``); DP5 and midpoint
+    run the per-stage path."""
     check_ray_params(rp)
-    dev = packets.x.device
-    t0 = _as_time(t0, dev)
-    t1 = _as_time(t1, dev)
-    h = (t1 - t0) / nsubsteps
+    h = (_as_time(t1, packets.x) - _as_time(t0, packets.x)) / nsubsteps
     da = 1.0 / nsubsteps
     p = packets
     for i in range(nsubsteps):
-        # a float32 product, as the reference's traced i * da
-        a0 = torch.full((), float(i), dtype=torch.float32, device=dev) * da
+        a0 = _substep_start(i, da, p.x)
         if method == "rk4":
             st = torch.stack([p.x, p.y, p.k, p.l, p.sign])
             out = table_substep(T_pair, st, torch.stack([a0, h]), rp=rp, interp=rp.interp,
@@ -342,6 +428,69 @@ def raytrace_tables(
         else:
             p = _step(p, _make_patch_sampler(T_pair, p, rp, ny, nx), a0, da, h, rp, method)
     return p
+
+
+def _patch_bwd_impl() -> str:
+    """Backward formulation of the patch path, ``JRSW_PATCH_BWD`` (read at
+    each call): 'table' (default: autograd through the table path, the
+    row gather's backward a scatter-add into the pair table) or 'taps'
+    (``_RaytracePatchFB``: the taps path's VJP at the same inputs)."""
+    return os.environ.get("JRSW_PATCH_BWD", "table")
+
+
+class _RaytracePatchFB(torch.autograd.Function):
+    """The patch-table forward (``raytrace_tables``: ``TableSubstep`` for
+    RK4) with a taps-formulation backward: ``_raytrace_taps`` at the same
+    packets, fields and times, differentiated under autograd. ``T_pair``
+    (a function of the fields) gets a zero cotangent, so nothing is
+    counted twice. ``apply(cfg, x, y, k, l, sign, T_pair, fields_old,
+    fields_new, t0, t1) -> (x, y, k, l)``."""
+
+    @staticmethod
+    def forward(ctx, cfg, x, y, k, l, sign, T_pair, fields_old, fields_new, t0, t1):
+        rp, ny, nx, nsubsteps, method = cfg
+        ctx.cfg = cfg
+        ctx.save_for_backward(x, y, k, l, sign, fields_old, fields_new, t0, t1)
+        out = raytrace_tables(Packets(x, y, k, l, sign), T_pair, t0, t1, rp, ny, nx,
+                              nsubsteps, method)
+        return out.x, out.y, out.k, out.l
+
+    @staticmethod
+    def backward(ctx, *g):
+        rp, _, _, nsubsteps, method = ctx.cfg
+
+        def taps(x, y, k, l, sign, fo, fn, t0, t1):
+            return _raytrace_taps(Packets(x, y, k, l, sign), fo, fn, t0, t1, rp, nsubsteps,
+                                  method)[:4]
+
+        needs = ctx.needs_input_grad[1:6] + ctx.needs_input_grad[7:]
+        d = recompute_vjp(ctx.saved_tensors, needs, g, taps)
+        return (None, *d[:5], None, *d[5:])
+
+
+def raytrace_tables_fb(
+    packets: Packets,
+    T_pair: torch.Tensor,
+    fields_old,
+    fields_new,
+    t0,
+    t1,
+    rp: RayParams,
+    ny: int,
+    nx: int,
+    nsubsteps: int = 1,
+    method: str = "rk4",
+) -> Packets:
+    """``raytrace_tables`` with the backward ``JRSW_PATCH_BWD`` selects
+    (``_patch_bwd_impl``); for callers that hold the (old, new) field
+    stacks, as the coupled frame does."""
+    if _patch_bwd_impl() == "taps":
+        t0, t1 = _as_time(t0, packets.x), _as_time(t1, packets.x)
+        cfg = (rp, ny, nx, nsubsteps, method)
+        x, y, k, l = _RaytracePatchFB.apply(cfg, *packets, T_pair, fields_old, fields_new,
+                                            t0, t1)
+        return Packets(x, y, k, l, packets.sign)
+    return raytrace_tables(packets, T_pair, t0, t1, rp, ny, nx, nsubsteps, method)
 
 
 def raytrace(
@@ -359,8 +508,9 @@ def raytrace(
     check_ray_params(rp)
     if _use_patch(rp):
         _, ny, nx = fields_old.shape
-        return raytrace_tables(packets, build_pair(fields_old, fields_new, rp), t0, t1,
-                               rp, ny, nx, nsubsteps, method)
+        return raytrace_tables_fb(packets, build_pair(fields_old, fields_new, rp),
+                                  fields_old, fields_new, t0, t1, rp, ny, nx, nsubsteps,
+                                  method)
     return _raytrace_taps(packets, fields_old, fields_new, t0, t1, rp, nsubsteps,
                           method)
 
@@ -436,8 +586,8 @@ def raytrace_adaptive(
     check_ray_params(rp)
     _, ny, nx = fields_old.shape
     dev = packets.x.device
-    t0 = _as_time(t0, dev)
-    t1 = _as_time(t1, dev)
+    t0 = _as_time(t0, packets.x)
+    t1 = _as_time(t1, packets.x)
     span = t1 - t0
     use_patch = _use_patch(rp)
     T_pair = build_pair(fields_old, fields_new, rp) if use_patch else None
@@ -445,7 +595,7 @@ def raytrace_adaptive(
     fused = use_patch and loop == "while" and pair == "dopri5"
     n_total = packets.n
     eps = 1e-9 * torch.abs(span)
-    tols = torch.tensor([rtol, atol], dtype=torch.float32, device=dev)
+    tols = torch.tensor([rtol, atol], dtype=packets.x.dtype, device=dev)
 
     def attempt(p, t, h, sample):
         """One per-stage attempt from (p, t) with size h -> (p_hi, sum of

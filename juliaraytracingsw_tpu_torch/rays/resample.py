@@ -1,7 +1,7 @@
 """Packet ensemble maintenance (port of ``rays/resample.k_cutoff_reset``).
 
 Weibull birth/death resampling is not ported yet (ROADMAP queue 1,
-item 16).
+item 5).
 """
 from __future__ import annotations
 

@@ -77,8 +77,15 @@ def test_kernel_matches_twin(interp, n, cuda_device):
 def test_kernel_refuses_what_it_cannot_do(cuda_device):
     rows_T, st, scal, rp = _inputs("bilinear", cuda_device, 64)
     call = dict(rp=rp, interp="bilinear", da=1.0)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ray_step.fused_substep(rows_T.clone().requires_grad_(), st, scal, **call)
+    # rows that need a gradient launch the kernel once; the backward is the
+    # per-stage formulation, no launch
+    before = ray_step.launches["bilinear"]
+    leaf = rows_T.clone().requires_grad_()
+    (g,) = torch.autograd.grad(ray_step.fused_substep(leaf, st, scal, **call)[2].sum(), leaf)
+    assert ray_step.launches["bilinear"] == before + 1
+    assert bool(torch.isfinite(g).all()) and bool((g != 0).any())
+    with pytest.raises(TypeError, match="float64"):
+        ray_step.fused_substep(rows_T, st.double(), scal, **call)
     with pytest.raises(ValueError, match="is on"):
         ray_step.fused_substep(rows_T, st.cpu(), scal, **call)
     before = dict(ray_step.launches)
@@ -218,10 +225,54 @@ def test_table_attempt_kernel_matches_twin(interp, table_dtype, n, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 4099])
+@pytest.mark.parametrize("table_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_table_substep_backward_matches_twin_autograd(interp, table_dtype, n, cuda_device):
+    """``TableSubstep`` on the card: the forward is one kernel launch, the
+    backward (the per-stage formulation) launches none, and its cotangents
+    agree with plain autograd through the twin. Both scatter the table's
+    cotangent with atomics in no fixed order: the float32 table's to 1e-4
+    of its largest value, the bfloat16 table's finite and on the same
+    rows; the state's and the scalars' to rtol 1e-4, atol 1e-6 of their
+    largest. The packets are moved 0.2 cells or more off any face: there the
+    bilinear interpolant's derivative jumps, and the kernel's patch-local
+    and the per-stage formulation's global coordinates may round a stage
+    to either side."""
+    T_pair, st, rp = _table_inputs(interp, table_dtype, cuda_device, n)
+    for row, origin, step in ((0, rp.x0, rp.dx), (1, rp.y0, rp.dy)):
+        fi = (st[row].double() - origin) / step
+        st[row] = (origin + (torch.floor(fi) + 0.2 + 0.6 * (fi - torch.floor(fi))) * step).float()
+    scal = torch.tensor([0.25, 2e-3], device=cuda_device)
+    geo = dict(rp=rp, interp=interp, da=0.5, ny=NX, nx=NX)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (T_pair, st, scal)]
+        out = fn(*leaves, **geo)
+        loss = torch.sum(out[2] ** 2 + out[3] ** 2) + torch.sum(out[0] * out[1])
+        return torch.autograd.grad(loss, leaves)
+
+    before = ray_step.table_launches[interp]
+    got = grads(ray_step.table_substep)
+    torch.cuda.synchronize()
+    assert ray_step.table_launches[interp] == before + 1
+    ref = grads(ray_step.table_substep_torch)
+    assert got[0].dtype == T_pair.dtype and bool(torch.isfinite(got[0]).all())
+    rows = [(g != 0).any(dim=1) for g in (got[0], ref[0])]
+    assert torch.equal(*rows) and bool(rows[0].any())
+    if table_dtype == "float32":
+        torch.testing.assert_close(got[0], ref[0], rtol=0,
+                                   atol=1e-4 * float(ref[0].abs().max()))
+    for a, b in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["substep", "attempt"])
 def test_table_kernels_refuse_what_they_cannot_do(kind, cuda_device):
     """Bad dtype, width, row count, contiguity, device (the table on another
-    device), gradients, a table off a 16-byte boundary; CPU tensors run the
+    device), a float64 state, gradients through the attempt (forward only),
+    a table off a 16-byte boundary; CPU tensors run the
     twin and count nothing."""
     T_pair, st, rp = _table_inputs("bilinear", "bfloat16", cuda_device, 64)
     if kind == "substep":
@@ -249,8 +300,11 @@ def test_table_kernels_refuse_what_they_cannot_do(kind, cuda_device):
         call(T_pair.cpu())
     with pytest.raises(ValueError, match="is on"):
         call(T_pair, sc=scal.cpu())
-    with pytest.raises(NotImplementedError, match="backward"):
-        call(T_pair, s=st.clone().requires_grad_())
+    with pytest.raises(TypeError, match="float64"):
+        call(T_pair, s=st.double())
+    if kind == "attempt":
+        with pytest.raises(NotImplementedError, match="forward only"):
+            call(T_pair, s=st.clone().requires_grad_())
     shifted = torch.empty(T_pair.numel() + 1, dtype=T_pair.dtype, device=cuda_device)[1:]
     with pytest.raises(ValueError, match="16-byte"):
         call(shifted.view(T_pair.shape))

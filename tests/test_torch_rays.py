@@ -300,10 +300,7 @@ def test_wrapper_rejects_bad_inputs():
         tops.fused_substep(rows_T, st, scal, rp=rp, interp="cubic", da=1.0)
     with pytest.raises(RuntimeError, match="CPU or CUDA"):
         tops.fused_substep(rows_T.to("meta"), st.to("meta"), scal.to("meta"), **call)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        trt.raytrace_tables(tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160), 0.0,
-                            0.1, rp, NY, NX, method="midpoint")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         trt.raytrace_tables(tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160), 0.0,
                             0.1, rp._replace(gather="auto"), NY, NX)
 

@@ -153,7 +153,7 @@ def _bad_cases():
     """(case, mutation of (T_pair, st, scal), expected error, message)."""
     return {
         "table dtype": (lambda T, st, sc: (T.double(), st, sc), TypeError, "float32 or bfloat16"),
-        "st dtype": (lambda T, st, sc: (T, st.double(), sc), TypeError, "float32"),
+        "st dtype": (lambda T, st, sc: (T, st.half(), sc), TypeError, "float32"),
         "width": (lambda T, st, sc: (T[:, :-8].contiguous(), st, sc), ValueError, "shape"),
         "row count": (lambda T, st, sc: (T[:-1], st, sc), ValueError, "shape"),
         "st rows": (lambda T, st, sc: (T, torch.cat([st, st[:2]]), sc), ValueError, "shape"),
