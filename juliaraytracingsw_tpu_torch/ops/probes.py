@@ -10,11 +10,13 @@ Four hand-written CUDA kernels, each beside its plain PyTorch version:
   version: ``staged_copy_torch``. ``COPY_PROBES`` names the Pallas kernel
   each schedule replaces.
 - ``gather_elems`` launches ``gather_elems`` of ``csrc/probe_gather.cu``: a
-  flat element gather or ``torch.gather`` along axis 0 or 1. Plain version:
-  ``gather_elems_torch``.
+  flat element gather or ``torch.gather`` along axis 0 or 1, four elements
+  a thread. Plain version: ``gather_elems_torch``.
 - ``gather_rows`` launches ``gather_rows`` of ``csrc/probe_gather.cu``: a
-  row gather, one warp per row, optionally rounded through bfloat16 or
-  upcast from it. Plain version: ``gather_rows_torch``.
+  row gather, one 16-byte chunk of the output a thread for one or two rows
+  (one warp a row where that fits one wave of the card), optionally
+  rounded through bfloat16 or upcast from it. Plain version:
+  ``gather_rows_torch``.
 - ``row_ring`` launches ``csrc/probe_row_ring.cu``: one bulk copy per row
   (or per Q rows), the copies cut into chunks, one per ring of K in flight
   (``ring_plan``), rings on every SM, each copy written back by a bulk

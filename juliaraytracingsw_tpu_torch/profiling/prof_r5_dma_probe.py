@@ -5,10 +5,10 @@ A pair table of R = 512^2 rows of 160 (the bilinear (old|new) row) in
 float32 and bfloat16, and 1,048,576 random row indices (seed 0 as the
 script), the ray path's gather:
 
-1. row gathers, one warp per row: f32 rows, bf16 rows, bf16 rows upcast to
-   f32 (the form the ray kernels read), and narrow rows of 4 and 8 floats
-   (permuting packet state through a sort order), each beside
-   ``index_select``; ``argsort`` of the indices (a library call);
+1. row gathers, 16-byte chunks over the flat output: f32 rows, bf16 rows,
+   bf16 rows upcast to f32 (the form the ray kernels read), and narrow rows
+   of 4 and 8 floats (permuting packet state through a sort order), each
+   beside ``index_select``; ``argsort`` of the indices (a library call);
 2. the per-row copy ring, one bulk copy (TMA) per row with K = 8 or 32 in
    flight, 131,072 rows at the script's split (16 blocks of 8192 rows) and
    at 256 blocks of 512 (the kernel spreads either over every SM), f32 and

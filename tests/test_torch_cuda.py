@@ -334,16 +334,43 @@ def test_copy_probe_matches_plain(name, cuda_device):
     assert torch.equal(out, probes.staged_copy_torch(x, sched, a, b))
 
 
+# (mode, table shape, idx shape, idx's offset in its buffer): element counts
+# that are not a multiple of 4 leave a tail; rows of 1, 3 or 5 columns put
+# one thread's four elements in several rows; an offset of one element
+# leaves idx off the 16-byte boundary (the element-by-element form)
+_ELEM_CASES = [
+    ("flat", (300, 128), (1000, 128), 0),
+    ("flat", (300, 128), (1,), 0),
+    ("flat", (300, 128), (4099,), 0),
+    ("flat", (512 * 512,), (1_000_003,), 0),
+    ("flat", (300, 128), (4099,), 1),
+    ("axis0", (300, 128), (300, 128), 0),
+    ("axis0", (300, 3), (1001, 3), 0),
+    ("axis0", (300, 1), (999, 1), 0),
+    ("axis0", (2048, 128), (8191, 128), 0),
+    ("axis0", (300, 5), (33, 5), 1),
+    ("axis1", (300, 128), (300, 128), 0),
+    ("axis1", (300, 7), (300, 3), 0),
+    ("axis1", (301, 128), (301, 1), 0),
+    ("axis1", (300, 128), (300, 5), 1),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["flat", "axis0", "axis1"])
-def test_gather_elems_matches_plain(mode, cuda_device):
+@pytest.mark.parametrize("mode,tab_shape,idx_shape,offset", _ELEM_CASES,
+                         ids=[f"{m}-{'x'.join(map(str, t))}-{'x'.join(map(str, i))}-off{o}"
+                              for m, t, i, o in _ELEM_CASES])
+def test_gather_elems_matches_plain(mode, tab_shape, idx_shape, offset, cuda_device):
+    """Bit-equal to the plain version, one launch a call."""
     probes = _probes()
     g = torch.Generator().manual_seed(1)
-    table = torch.randn((300, 128), generator=g)
-    hi = {"flat": table.numel(), "axis0": 300, "axis1": 128}[mode]
-    idx = torch.randint(0, hi, (1000 if mode == "flat" else 300, 128), generator=g,
-                        dtype=torch.int32)
-    table, idx = table.to(cuda_device), idx.to(cuda_device)
+    table = torch.randn(tab_shape, generator=g)
+    hi = {"flat": table.numel(), "axis0": tab_shape[0], "axis1": tab_shape[-1]}[mode]
+    n = int(np.prod(idx_shape))
+    buf = torch.randint(0, hi, (n + offset,), generator=g, dtype=torch.int32)
+    table, buf = table.to(cuda_device), buf.to(cuda_device)
+    idx = buf[offset:].view(idx_shape)
+    assert (idx.data_ptr() % 16 == 0) == (offset == 0)
     before = probes.launches["gather_elems"]
     out = probes.gather_elems(table, idx, mode)
     torch.cuda.synchronize()
@@ -351,22 +378,33 @@ def test_gather_elems_matches_plain(mode, cuda_device):
     assert torch.equal(out, probes.gather_elems_torch(table, idx, mode))
 
 
+_ROW_FORMS = ["f32", "f32_round_bf16", "bf16", "bf16_to_f32"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("form", ["f32", "f32_round_bf16", "bf16", "bf16_to_f32", "narrow"])
-def test_gather_rows_matches_plain(form, cuda_device):
-    """Rows of 160 (40 16-byte chunks: lanes loop) and of 4 floats."""
+@pytest.mark.parametrize("n", [1, 31, 33, 3001, 100_003])
+@pytest.mark.parametrize("row_bytes", [16, 32, 48, 320, 640, 4112])
+@pytest.mark.parametrize("form", _ROW_FORMS)
+def test_gather_rows_matches_plain(form, row_bytes, n, cuda_device):
+    """Rows of 1 to 257 16-byte chunks (a warp covers 32 rows down to an
+    eighth of one; the widest outgrows a block), one or two rows in flight a
+    thread by width, ragged against both; up to 3001 rows one warp a row
+    (32 n threads fit one wave of an H100), 100,003 the chunk mapping.
+    Bit-equal, one launch a call."""
     probes = _probes()
     g = torch.Generator().manual_seed(2)
-    W = 4 if form == "narrow" else 160
-    table = torch.randn((500, W), generator=g)
-    if form.startswith("bf16"):
+    bf16 = form.startswith("bf16")
+    table = torch.randn((500, row_bytes // (2 if bf16 else 4)), generator=g)
+    if bf16:
         table = table.bfloat16()
-    rows = torch.randint(0, 500, (3001,), generator=g, dtype=torch.int32)
+    rows = torch.randint(0, 500, (n,), generator=g, dtype=torch.int32)
     table, rows = table.to(cuda_device), rows.to(cuda_device)
     kw = dict(round_bf16=form == "f32_round_bf16",
               out_dtype=torch.float32 if form == "bf16_to_f32" else None)
+    before = probes.launches["gather_rows"]
     out = probes.gather_rows(table, rows, **kw)
     torch.cuda.synchronize()
+    assert probes.launches["gather_rows"] == before + 1
     assert torch.equal(out, probes.gather_rows_torch(table, rows, **kw))
 
 
