@@ -46,10 +46,25 @@ without them, and on any failed check. Phases, each printing its lines:
    step (``bench.py:324-341``), one table kernel launch a call, timed with
    its peak memory; 5d. the gradient through 100 coupled 512^2 steps with
    remat (``bench.py:343-376``, taps gather, 16,384 packets), timed with
-   its peak memory, and 10 steps with and without remat, held equal.
+   its peak memory, and 10 steps with and without remat, held equal;
+6. the command line on the card (``juliaraytracingsw_tpu_torch.experiments``):
+   6a. the RK4 hero through ``rsw ... --gather auto --checkpoint``: 'auto'
+   resolves to patch, the table kernel launches 20 times and the first cut
+   never, the HDF5 outputs hold 4 packet frames and 4 snapshots,
+   diagnostics are finite, energy changes by less than 1%, |k| < k_cutoff;
+   coupled steps/s over the last 3 frames with the writers and without,
+   beside phase 4's. Where h5py is not installed the command line cannot
+   write: the same path then runs through ``CoupledDriver`` built by the
+   command line's own setup, without writers, and once more with the packet
+   telemetry copied to the host and dropped, and a line says so;
+   6b. bit-exact resume at hero size: checkpoint after 2 frames, 2 more
+   frames, a fresh driver restored from the checkpoint runs the same 2;
+   6c. 6a's checkpoint restored into a driver on the CPU, every leaf equal;
+   6d. one small run (128^2, 16,384 packets, patch) on the card and on the
+   CPU: diagnostics within rtol 1e-5, the last packets within 1e-4.
 
-The kernels' launch counts are set to 0 before each main path (2c, 4, 4b
-and 5c) and read after it; the heroes must launch only the table forms. The
+The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
+5c and 6a) and read after it; the heroes must launch only the table forms. The
 first cut runs on no main path: its launches are phase 2's. Every time
 printed carries the card's name and power limit.
 
@@ -58,8 +73,11 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import importlib.util
 import json
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -139,6 +157,9 @@ GRAD_L2_RTOL = 1e-4
 # over max |gradient| (the recomputed steps are the same calls; only the
 # atomics' order differs)
 REMAT_RTOL = 1e-6
+# phase 6d: a 128^2 run of 120 steps through the command line, GPU vs CPU,
+# held as phase 3 holds one frame: diagnostics to rtol 1e-5, packets to 1e-4
+CLI_DIAG_RTOL = 1e-5
 
 
 def psih_maker(grid, params):
@@ -816,6 +837,272 @@ def phase_long_gradient(card: str, device, nx: int = 512, steps: int = 100,
                 peak10_plain=peaks[False])
 
 
+def hero_argv(out_dir: str, platform: str = "cuda", nx: int = 512,
+              sqrtp: int = 1024) -> list[str]:
+    """The RK4 hero as a command line: 512^2 RSW, 1,048,576 packets,
+    bilinear bf16 tables, 'auto' gather; phase 4's IC (seed 1, ag 0.5, aw
+    0.05), dt (the CFL tune that gives DT) and schedule: 200 spinup steps,
+    then 4 frames of 5 flow steps."""
+    dx = 2 * np.pi / nx
+    spinup_T, output_dt = 200.5 * DT, 5.5 * DT
+    return ["rsw", "--nx", str(nx), "--sqrt-npackets", str(sqrtp), "--interp", "bilinear",
+            "--table-dtype", "bfloat16", "--ray-method", "rk4", "--gather", "auto",
+            "--seed", "1", "--ag", "0.5", "--aw", "0.05", "--cfltune", repr(DT * 2.0 / dx),
+            "--spinup-T", repr(spinup_T), "--output-dt", repr(output_dt),
+            "--T", repr(spinup_T + 4.5 * output_dt), "--out-dir", out_dir,
+            "--checkpoint", os.path.join(out_dir, "hero.npz"), "--platform", platform]
+
+
+class DiscardingWriter:
+    """Takes what the driver hands a packet writer, already copied to the
+    host, and keeps nothing: the telemetry's cost without an HDF5 write."""
+
+    def write(self, key, value):
+        pass
+
+    def write_packets(self, step, t, x=None, k=None, u=None, g=None):
+        pass
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def drive_cli(argv: list[str], log_fn, packet_writer=None):
+    """The command line's coupled run without its HDF5 outputs: the case
+    and the driver built by ``experiments.__main__`` itself, then init,
+    spinup, frames and the checkpoint, as its ``rsw`` runs them."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+
+    args = cli.build_parser().parse_args(argv)
+    case = cli.setup_rsw(args)
+    drv = cli.make_driver(args, case, packet_writer=packet_writer, log_fn=log_fn)
+    drv.init(case.sol0, case.packets)
+    spinup_steps, frames, steps_per_frame = cli.schedule(args)
+    drv.spinup(spinup_steps)
+    drv.run(frames, steps_per_frame)
+    if args.checkpoint:
+        drv.checkpoint(args.checkpoint)
+    return drv, case, (spinup_steps, frames, steps_per_frame)
+
+
+def timed_cli(argv: list[str], tag: str, writers: str):
+    """One run of the command line (``writers='hdf5'``: ``main``, all its
+    files; 'telemetry': ``drive_cli`` with the packet telemetry dropped on
+    the host; 'none': ``drive_cli`` with no writers) -> (driver, its case,
+    frame ms between the ends of consecutive frames, CUDA events)."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+
+    marks = []
+
+    def log_fn(line):
+        if line.startswith("step:"):       # a frame's end, after its outputs
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+        print(f"  [{tag}] {line}")
+
+    if writers == "hdf5":
+        drv = cli.run(argv, log_fn=log_fn)
+        args = cli.build_parser().parse_args(argv)
+        case = cli.setup_rsw(args)
+    else:
+        sink = DiscardingWriter() if writers == "telemetry" else None
+        drv, case, _ = drive_cli(argv, log_fn, packet_writer=sink)
+    torch.cuda.synchronize()
+    frame_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    return drv, case, frame_ms
+
+
+def phase_cli_hero(card: str, device, out_dir: str, phase4_steps_per_s: float) -> dict:
+    """6a: the RK4 hero through the command line; the main path of phase 6."""
+    from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten
+    from juliaraytracingsw_tpu_torch.models import rsw
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+
+    argv = hero_argv(out_dir)
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    if not have_h5py:
+        print("6a: h5py is not installed on this machine, so the command line cannot write "
+              "its rolling HDF5 outputs or diagnostics.h5 (io/output imports h5py, as the "
+              "reference does): the same path runs through CoupledDriver built by the "
+              "command line's own setup (experiments.__main__.setup_rsw, make_driver), "
+              "without writers, diagnostics kept in memory; the checkpoint (numpy) is "
+              "written")
+    ray_step.reset_launches()
+    drv, case, frame_ms = timed_cli(argv, "cli hero", "hdf5" if have_h5py else "none")
+    counts = launch_counts()
+    res = dict(launches=counts["table"]["bilinear"], table_counts=counts["table"],
+               first_cut=counts["first cut"], gather=drv.rp.gather,
+               writers="hdf5" if have_h5py else "none")
+    if res["gather"] != "patch":
+        raise AssertionError(f"6a: --gather auto resolved to {res['gather']}, not patch")
+    others = {k: v for k, v in counts["table"].items() if k != "bilinear"}
+    if res["launches"] != 20 or res["first_cut"] or any(others.values()) or any(
+            counts["table attempt"].values()):
+        raise AssertionError(f"6a: the command line's hero launched {counts}, not the "
+                             f"bilinear table kernel 20 times")
+    grid, params = case.model.grid, case.model.params
+    e0 = float(rsw.total_energy(case.sol0, grid, params))
+    sim = drv.sim
+    e1 = float(rsw.total_energy(sim.sol, grid, params))
+    kmax = float(torch.sqrt(sim.packets.k ** 2 + sim.packets.l ** 2).max())
+    finite = all(bool(torch.isfinite(t.abs()).all()) for _, t in _flatten(sim)
+                 if isinstance(t, torch.Tensor))
+    if have_h5py:
+        import h5py
+
+        from juliaraytracingsw_tpu_torch.io.output import SequencedReader
+
+        n_packet = len(SequencedReader(os.path.join(out_dir, "packets")).packet_times())
+        n_snap = SequencedReader(os.path.join(out_dir, "rsw")).count()
+        with h5py.File(os.path.join(out_dir, "diagnostics.h5"), "r") as f:
+            diags = {k: f[k][()] for k in f}
+    else:
+        n_packet = n_snap = None
+        diags = {"t": np.asarray(drv.diag_times),
+                 **{k: np.asarray(v) for k, v in drv.diag_series.items()}}
+    diag_ok = all(len(v) == 4 and np.isfinite(v).all() for v in diags.values())
+    res.update(dE=abs(e1 - e0) / e0, kmax=kmax, finite=finite, frame_ms=frame_ms,
+               steps_per_s=5 * len(frame_ms) / (sum(frame_ms) / 1e3))
+    files = (f"{n_packet} packet frames and {n_snap} snapshots in HDF5" if have_h5py
+             else "no HDF5 files (no h5py)")
+    print(f"6a hero through the command line (rsw, {grid.nx}^2, {sim.packets.n} packets, bilinear, "
+          f"bf16 tables, --gather auto -> {res['gather']}): table kernel launches "
+          f"{res['launches']}, first-cut launches {res['first_cut']}; {files}; diagnostics "
+          f"{sorted(diags)} finite {diag_ok}; energy change {res['dE']:.3e}; max |k| "
+          f"{kmax:.3f} (cutoff {K_CUTOFF}); finite {finite}; checkpoint "
+          f"{os.path.getsize(os.path.join(out_dir, 'hero.npz')) / 2**20:.1f} MiB [{card}]")
+    if not (finite and diag_ok and res["dE"] < 0.01 and kmax < K_CUTOFF
+            and (not have_h5py or (n_packet == 4 and n_snap == 4))):
+        raise AssertionError("6a: the command line's hero failed its checks")
+    # the same run again without writers (and, without h5py, with the
+    # telemetry copied to the host and dropped): coupled steps/s of each
+    rates = {res["writers"]: res["steps_per_s"]}
+    for writers in (("none",) if have_h5py else ("telemetry",)):
+        with tempfile.TemporaryDirectory() as tmp:
+            other = timed_cli(hero_argv(tmp), f"cli hero, writers {writers}", writers)[2]
+        rates[writers] = 5 * len(other) / (sum(other) / 1e3)
+    res["rates"] = rates
+    label = {"hdf5": "with the HDF5 writers", "none": "without writers",
+             "telemetry": "with the packet telemetry copied to the host and dropped (no HDF5)"}
+    print("6a coupled steps/s over the last 3 frames, frame ends by CUDA events: "
+          + "; ".join(f"{label[k]} {v:.2f}" for k, v in rates.items())
+          + f"; phase 4 (CoupledDriver, no writers) {phase4_steps_per_s:.2f} [{card}]",
+          flush=True)
+    res["sim"] = sim
+    return res
+
+
+def phase_resume(card: str, device) -> None:
+    """6b: checkpoint after frame 2 of the hero (the command line's case),
+    2 more frames; a fresh driver restored from the checkpoint runs the
+    same 2 frames to the same bits."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cli.build_parser().parse_args(hero_argv(tmp))
+        case = cli.setup_rsw(args)
+        path = os.path.join(tmp, "frame2.npz")
+        a = cli.make_driver(args, case, log_fn=lambda line: None)
+        a.init(case.sol0, case.packets)
+        a.run(2, 5)
+        a.checkpoint(path)
+        a.run(2, 5)
+        b = cli.make_driver(args, case, log_fn=lambda line: None)
+        b.init(case.sol0, case.packets)
+        b.restore(path)
+        b.run(2, 5)
+    torch.cuda.synchronize()
+    diff = [p for (p, x), (_, y) in zip(_flatten(a.sim), _flatten(b.sim))
+            if not (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)]
+    print(f"6b resume on the card ({case.model.grid.nx}^2, {a.sim.packets.n} packets): after "
+          f"restoring frame "
+          f"2's checkpoint and 2 more frames, leaves not bit-equal: {diff or 'none'} "
+          f"(step {b.sim.clock.step}) [{card}]", flush=True)
+    if diff:
+        raise AssertionError(f"6b: the resumed run differs in {diff}")
+
+
+def phase_restore_on_cpu(card: str, out_dir: str, gpu_sim) -> None:
+    """6c: 6a's checkpoint restored into the command line's driver on the
+    CPU; every leaf equals the card's state."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten
+
+    t0 = time.perf_counter()
+    args = cli.build_parser().parse_args(hero_argv(out_dir, platform="cpu"))
+    case = cli.setup_rsw(args)
+    drv = cli.make_driver(args, case, log_fn=lambda line: None)
+    drv.init(case.sol0, case.packets)
+    drv.restore(os.path.join(out_dir, "hero.npz"))
+    diff = []
+    for (p, x), (_, y) in zip(_flatten(drv.sim), _flatten(gpu_sim), strict=True):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu" or not torch.equal(x, y.cpu()):
+                diff.append(p)
+        elif x != y:
+            diff.append(p)
+    print(f"6c the card's checkpoint restored on the CPU: {len(_flatten(gpu_sim))} leaves, "
+          f"not equal: {diff or 'none'} ({time.perf_counter() - t0:.1f} s) [{card}]",
+          flush=True)
+    if diff:
+        raise AssertionError(f"6c: the CPU restore differs in {diff}")
+
+
+def small_cli_argv(out_dir: str, platform: str) -> list[str]:
+    return ["rsw", "--nx", "128", "--sqrt-npackets", "128", "--gather", "patch", "--seed", "42",
+            "--ag", "0.5", "--aw", "0.05", "--spinup-T", "0.05", "--T", "0.3",
+            "--output-dt", "0.05", "--out-dir", out_dir, "--platform", platform]
+
+
+def cli_outputs(argv: list[str], have_h5py: bool):
+    """(diagnostics {name: series}, last packets {x, k}) of one command line
+    run: from its files, or without h5py from its driver."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+
+    quiet = lambda line: None   # noqa: E731
+    if have_h5py:
+        import h5py
+
+        from juliaraytracingsw_tpu_torch.io.output import SequencedReader
+
+        cli.run(argv, log_fn=quiet)
+        out_dir = argv[argv.index("--out-dir") + 1]
+        with h5py.File(os.path.join(out_dir, "diagnostics.h5"), "r") as f:
+            diags = {k: f[k][()] for k in f}
+        _, frame = SequencedReader(os.path.join(out_dir, "packets")).final_packet_frame()
+        return diags, {"x": frame["x"], "k": frame["k"]}
+    drv = drive_cli(argv, quiet)[0]
+    p = drv.sim.packets
+    diags = {"t": np.asarray(drv.diag_times),
+             **{k: np.asarray(v) for k, v in drv.diag_series.items()}}
+    return diags, {"x": torch.stack([p.x, p.y], 1).cpu().numpy(),
+                   "k": torch.stack([p.k, p.l], 1).cpu().numpy()}
+
+
+def phase_cli_gpu_vs_cpu(card: str) -> None:
+    """6d: one small run through the command line on the card and on the
+    CPU: diagnostics within rtol CLI_DIAG_RTOL, the last packet frame within
+    FRAME_PACKET_ATOL."""
+    have_h5py = importlib.util.find_spec("h5py") is not None
+    with tempfile.TemporaryDirectory() as tmp:
+        gd, gp = cli_outputs(small_cli_argv(os.path.join(tmp, "gpu"), "cuda"), have_h5py)
+        cd, cp = cli_outputs(small_cli_argv(os.path.join(tmp, "cpu"), "cpu"), have_h5py)
+    diag_err = max(float(np.max(np.abs(gd[k] - cd[k]) / np.abs(cd[k]))) for k in cd)
+    pk_err = max(float(np.abs(gp[k] - cp[k]).max()) for k in cp)
+    how = "the command line's files" if have_h5py else "the driver (no h5py: no files)"
+    print(f"6d the command line GPU vs CPU (rsw 128^2, 16384 packets, patch, 20 spinup + 5 x 20 "
+          f"steps; read from {how}): diagnostics {sorted(cd)} max rel err {diag_err:.3e} "
+          f"(limit {CLI_DIAG_RTOL}), last packets max abs err {pk_err:.3e} (limit "
+          f"{FRAME_PACKET_ATOL}) [{card}]", flush=True)
+    if not (diag_err <= CLI_DIAG_RTOL and pk_err <= FRAME_PACKET_ATOL
+            and all(len(v) == 5 for v in cd.values())):
+        raise AssertionError("6d: the command line's GPU and CPU runs disagree")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false",
@@ -877,6 +1164,13 @@ def main() -> int:
     phase_gradient_gpu_vs_cpu(device)
     phase_hero_fwd_bwd(card, device)
     phase_long_gradient(card, device)
+
+    # phase 6: the command line; its hero's launches are counted from 0
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli = phase_cli_hero(card, device, out_dir, main_run["coupled_steps_per_s"])
+        phase_resume(card, device)
+        phase_restore_on_cpu(card, out_dir, cli.pop("sim"))
+    phase_cli_gpu_vs_cpu(card)
     for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
@@ -887,7 +1181,8 @@ def main() -> int:
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         {"name": f"ray_step_rk4_table_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES, "launches": counts[interp], "table_dtype": hero_dtype,
+         "replaces": REPLACES, "launches": counts[interp],
+         "cli_launches": cli["table_counts"][interp], "table_dtype": hero_dtype,
          **tables[interp, hero_dtype], "fwd_bwd_ms": fwd_bwd[interp, hero_dtype]}
         for interp in INTERPS] + [
         {"name": f"ray_attempt_dp5_table_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,

@@ -11,10 +11,13 @@
   ``remat`` each interleaved step is checkpointed for the backward pass.
 - ``make_flow_frame``: flow-only steps (spinup).
 - ``CoupledDriver``: the host loop around the frames, with spinup, the NaN
-  guard and CFL/walltime logging.
+  guard, rolling HDF5 outputs (snapshots and packet telemetry),
+  diagnostics, CFL/walltime logging and bit-exact checkpoints.
 
 Frames are Python loops that enqueue device work; the host waits on the
-device once per frame, in the NaN guard. Everything in a frame is
+device once per frame, in the NaN guard, and again where a frame's
+outputs go to the host: one copy of the packet telemetry, one of each
+snapshot, one of each diagnostic. Everything in a frame is
 differentiable but the adaptive integrator's 'while' loop and its fused
 attempt, which are forward only, as in the reference.
 """
@@ -34,7 +37,8 @@ from ..rays.packets import Packets
 from ..rays.patch import build_patch_table
 from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_from_psih,
                              make_pair_table, raytrace, raytrace_adaptive,
-                             raytrace_tables_fb)
+                             raytrace_tables_fb, resolve_gather, sample_gradients,
+                             sample_velocity)
 from ..rays.resample import k_cutoff_reset
 
 __all__ = [
@@ -96,6 +100,7 @@ def make_coupled_frame(
     remat: bool = False,
     ray_opts: dict | None = None,
     ray_info_fn: Callable | None = None,
+    n_packets: int | None = None,
 ):
     """``frame(sim) -> sim``: ``flow_steps`` interleaved flow/ray steps.
 
@@ -108,9 +113,17 @@ def make_coupled_frame(
     the adaptive methods (rtol, atol, max_steps, init_substeps, loop,
     pair); ``ray_info_fn``, if given, is called with the info dict of each
     flow step's adaptive integration (once, not again when a checkpointed
-    step is recomputed)."""
+    step is recomputed). ``rp.gather='auto'`` is resolved here for
+    ``n_packets`` packets (``rays/raytrace.resolve_gather``), which it then
+    needs."""
     _check_ray_method(ray_method)
     check_ray_params(rp)
+    if rp.gather == "auto":
+        if n_packets is None:
+            raise ValueError(
+                "rp.gather='auto' requires n_packets= so the frame can "
+                "resolve the patch-vs-taps crossover at build time")
+        rp = resolve_gather(rp, n_packets, model.grid.ny, model.grid.nx)
     if frozen_flow and dt is None:
         raise ValueError("frozen_flow=True needs dt")
     grid = model.grid
@@ -193,9 +206,18 @@ class CoupledDriver:
     ``remat=True`` checkpoints each coupled step of a frame for the
     backward pass (``make_coupled_frame``).
 
+    Outputs: ``snapshot_writer`` and ``packet_writer`` (``io/output``
+    ``SequencedWriter``s) take the problem's header at ``init``, each
+    frame's packet telemetry (positions, wavenumbers, velocities and, with
+    ``write_gradients``, velocity gradients at the packets) and every
+    ``snapshot_every``-th frame's solution; ``diagnostics`` (name ->
+    ``fn(sol, grid, params)``) are recorded every ``diag_every_frames``
+    frames into ``diag_times``/``diag_series`` and written by
+    ``save_diagnostics``. ``checkpoint``/``restore`` save and load the whole
+    ``SimState`` in the format the JAX package reads and writes.
+
     Options whose code is not ported yet raise NotImplementedError naming
-    the ROADMAP item: birth/death, the writers, diagnostics and the live
-    dashboard.
+    the ROADMAP item: birth/death and the live dashboard.
     """
 
     model: Model
@@ -213,9 +235,12 @@ class CoupledDriver:
     frozen_flow: bool = False
     remat: bool = False
     birth_death: bool = False
-    snapshot_writer: object | None = None
+    # outputs
+    snapshot_writer: object | None = None    # io/output.SequencedWriter
     packet_writer: object | None = None
-    diagnostics: dict | None = None
+    write_gradients: bool = True
+    diagnostics: dict | None = None           # name -> fn(sol, grid, params)
+    diag_every_frames: int = 1
     log_every_frames: int = 1
     log_fn: Callable = print
     live: object | None = None
@@ -224,10 +249,6 @@ class CoupledDriver:
         _check_ray_method(self.ray_method)
         if self.birth_death:
             raise _not_ported("birth/death resampling", "item 5")
-        if self.snapshot_writer is not None or self.packet_writer is not None:
-            raise _not_ported("snapshot/packet writers", "item 11")
-        if self.diagnostics:
-            raise _not_ported("diagnostics", "item 11")
         if self.live is not None:
             raise _not_ported("the live dashboard", "item 12")
         check_ray_params(self.rp)
@@ -236,6 +257,8 @@ class CoupledDriver:
             self.filter_kwargs,
         )
         self.sim: SimState | None = None
+        self.diag_series: dict = {name: [] for name in (self.diagnostics or {})}
+        self.diag_times: list = []
         self.ray_infos: list[dict] = []
         self._frame_cache: dict = {}
         self._start_wall = time.time()
@@ -251,6 +274,16 @@ class CoupledDriver:
             packets=packets,
             fields=fields,
         )
+        if self.snapshot_writer is not None:
+            from ..io.output import save_problem
+
+            save_problem(self.snapshot_writer, grid, self.model.params, self.dt)
+        if self.packet_writer is not None:
+            self.packet_writer.write("params/f0", self.rp.f)
+            self.packet_writer.write("params/Cg", self.rp.Cg)
+            self.packet_writer.write("params/dt", self.dt)
+            self.packet_writer.write("params/N", packets.n)
+            self.packet_writer.write("params/omega_sign", packets.sign)
         return self.sim
 
     def _get_frame(self, kind: str, flow_steps: int):
@@ -280,23 +313,60 @@ class CoupledDriver:
             self._check_nan("spinup")
         return self.sim
 
-    def run(self, n_frames: int, flow_steps_per_frame: int):
-        """Main coupled loop: n_frames x (flow steps interleaved with rays)."""
+    def run(self, n_frames: int, flow_steps_per_frame: int, snapshot_every: int = 1):
+        """Main coupled loop: n_frames x (flow steps interleaved with rays),
+        writing packet telemetry each frame and snapshots every
+        ``snapshot_every`` frames."""
         frame = self._get_frame("coupled", flow_steps_per_frame)
         self.ray_infos.clear()
         for i in range(n_frames):
             self.sim = frame(self.sim)
             self._check_nan(f"frame {i}")
+            self._record_diagnostics(i)
+            self._write_packet_frame()
+            if self.snapshot_writer is not None and i % snapshot_every == 0:
+                step = self.sim.clock.step
+                self.snapshot_writer.write_frame(step, sol=self.sim.sol)
+                self.snapshot_writer.write(f"snapshots/t/{step}", float(self.sim.clock.t))
             if i % self.log_every_frames == 0:
                 self._log(i)
+        self.flush()
         return self.sim
 
     # --- helpers -------------------------------------------------------------
     def _check_nan(self, where: str):
         if not bool(torch.isfinite(self.sim.sol.abs().max())):
+            self.flush()
             raise FloatingPointError(
                 f"solution is NaN/Inf at {where} "
                 f"(t={float(self.sim.clock.t):.3f}) — aborting")
+
+    def _record_diagnostics(self, i: int):
+        if not self.diagnostics or i % self.diag_every_frames:
+            return
+        self.diag_times.append(float(self.sim.clock.t))
+        for name, fn in self.diagnostics.items():
+            value = fn(self.sim.sol, self.model.grid, self.model.params)
+            self.diag_series[name].append(value.detach().cpu().numpy())
+
+    def _write_packet_frame(self):
+        """One frame of packet telemetry, (N, 2) float32 arrays x, k, u and
+        (N, 4) g = (ux, uy, vx, vy), copied to the host in one transfer."""
+        if self.packet_writer is None:
+            return
+        sim = self.sim
+        p = sim.packets
+        rows = [p.x, p.y, p.k, p.l, *sample_velocity(p, sim.fields, self.rp)]
+        if self.write_gradients:
+            rows += sample_gradients(p, sim.fields, self.rp)
+        host = torch.stack(rows).cpu().numpy()
+
+        def cols(lo, hi):
+            return np.ascontiguousarray(host[lo:hi].T)
+
+        self.packet_writer.write_packets(
+            sim.clock.step, float(sim.clock.t), x=cols(0, 2), k=cols(2, 4), u=cols(4, 6),
+            g=cols(6, 10) if self.write_gradients else None)
 
     def _log(self, i: int):
         sim = self.sim
@@ -306,3 +376,35 @@ class CoupledDriver:
             f"step: {sim.clock.step:06d}, t: {float(sim.clock.t):.2f}, "
             f"cfl: {cfl:.2e}, wall: {(time.time() - self._start_wall) / 60:.2f} min"
         )
+
+    def save_diagnostics(self, path: str):
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            f["t"] = np.asarray(self.diag_times)
+            for name, series in self.diag_series.items():
+                f[name] = np.asarray(series)
+
+    def flush(self):
+        for w in (self.snapshot_writer, self.packet_writer):
+            if w is not None:
+                w.flush()
+
+    def close(self):
+        for w in (self.snapshot_writer, self.packet_writer):
+            if w is not None:
+                w.close()
+
+    # --- checkpointing -------------------------------------------------------
+    def checkpoint(self, path: str):
+        from ..io.checkpoint import save_checkpoint
+
+        save_checkpoint(path, self.sim)
+
+    def restore(self, path: str):
+        from ..io.checkpoint import load_checkpoint
+
+        if self.sim is None:
+            raise RuntimeError("call init() first to establish state shapes")
+        self.sim = load_checkpoint(path, self.sim)
+        return self.sim

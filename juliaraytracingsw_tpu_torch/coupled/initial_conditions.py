@@ -11,7 +11,7 @@ import torch
 
 from ..core.spectral import enforce_reality, rfft2
 
-__all__ = ["random_band_psih", "band_geo_wave_ic"]
+__all__ = ["random_band_psih", "band_geo_wave_ic", "front_ic"]
 
 
 def _grid_np(t: torch.Tensor) -> np.ndarray:
@@ -71,4 +71,48 @@ def band_geo_wave_ic(grid, rng, Kg=(10, 13), Kw=(0, 5), ag=1.5, aw=0.1,
 
     sol = np.stack([ugh + uwh, vgh + vwh, etagh + etawh]).astype(np.complex64)
     # purge conjugate-symmetry violations of the random phases
+    return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)
+
+
+def front_ic(grid, rng, n_waves=10, aw=0.1, f=3.0, Cg=1.0):
+    """Random rotated Gaussian line fronts of waves ``(3, nl, nkr)``
+    complex64: ``n_waves`` fronts, each a grid-scale Gaussian across and a
+    deformation-radius Gaussian along the front, rotated and placed at
+    random, projected onto the linear wave structure and normalised to max
+    speed ``aw``."""
+    Cg2 = Cg * Cg
+    xs, ys = _grid_np(grid.x), _grid_np(grid.y)
+    X, Y = np.meshgrid(xs, ys)
+    delta = grid.Lx / grid.nx
+    Ld = Cg / f
+    F = np.zeros_like(X)
+    for _ in range(n_waves):
+        th = 2 * np.pi * rng.random()
+        x0 = grid.Lx * rng.random() + float(xs[0])
+        y0 = grid.Ly * rng.random() + float(ys[0])
+        # rotate into front coordinates, wrap periodically, rotate back
+        nx_ = (X - x0) * np.cos(th) - (Y - y0) * np.sin(th)
+        ny_ = (X - x0) * np.sin(th) + (Y - y0) * np.cos(th)
+        ox = nx_ * np.cos(th) + ny_ * np.sin(th)
+        oy = -nx_ * np.sin(th) + ny_ * np.cos(th)
+        xd = np.mod(ox - float(xs[0]), grid.Lx) + float(xs[0])
+        yd = np.mod(oy - float(ys[0]), grid.Ly) + float(ys[0])
+        nxd = xd * np.cos(th) - yd * np.sin(th)
+        nyd = xd * np.sin(th) + yd * np.cos(th)
+        expo = -(nxd**2) / (2 * delta**2) - nyd**2 / (2 * Ld**2)
+        F += -1.0 / (delta * Ld) * np.exp(expo / 2)
+    F -= F.mean()
+
+    Fh = np.fft.rfft2(F)
+    kr = _grid_np(grid.kr)[None, :]
+    ell = _grid_np(grid.l)[:, None]
+    om = np.sqrt(f * f + Cg2 * _grid_np(grid.Krsq))
+    invK = _grid_np(grid.invKrsq)
+    etawh = 1j * Cg / om * Fh
+    uwh = 1j * Cg * (om * kr + 1j * f * ell) * invK / om * Fh
+    vwh = 1j * Cg * (om * ell - 1j * f * kr) * invK / om * Fh
+    uw = np.fft.irfft2(uwh, s=(grid.ny, grid.nx))
+    vw = np.fft.irfft2(vwh, s=(grid.ny, grid.nx))
+    s = aw / max(np.sqrt(uw**2 + vw**2).max(), 1e-30)
+    sol = np.stack([uwh * s, vwh * s, etawh * s]).astype(np.complex64)
     return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)

@@ -39,10 +39,12 @@ Integrators:
   (``ops/ray_step.table_attempt``, forward only); every other combination
   runs the per-stage attempt.
 
+``gather='auto'`` picks one of the two per run (``resolve_gather``): the
+patch path iff ``PATCH_TAPS_CROSSOVER * n_packets >= ny * nx``, the
+reference's rule and constant, so both packages choose alike.
+
 Times ``t0``, ``t1`` and the substep ``h`` take the packets' dtype
 (float32, or float64 for the gradient checks on the CPU).
-
-Not ported: ``gather='auto'`` (ROADMAP queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -69,6 +71,7 @@ __all__ = [
     "raytrace_adaptive",
     "raytrace_tables",
     "raytrace_tables_fb",
+    "resolve_gather",
     "sample_gradients",
     "sample_velocity",
 ]
@@ -86,7 +89,7 @@ class RayParams(NamedTuple):
     dx: float
     dy: float
     interp: str = "bilinear"   # 'bilinear' | 'bspline' | 'bicubic'
-    gather: str = "patch"      # 'patch' | 'taps' ('auto' is not ported)
+    gather: str = "patch"      # 'patch' | 'taps' | 'auto' (resolve_gather)
     # implicit midpoint (method 'midpoint'): the fixed-point solve iterates
     # until the residual drops below 1e-8 + rtol |z| or maxit iterations
     midpoint_rtol: float = 1e-6
@@ -97,15 +100,9 @@ class RayParams(NamedTuple):
 
 
 def check_ray_params(rp: RayParams) -> None:
-    """Raise for a RayParams the port cannot run. The reference resolves
-    gather='auto' by a patch-vs-taps crossover measured on a TPU
-    (``resolve_gather``); the port's must be measured on the H100 first."""
-    if rp.gather == "auto":
-        raise NotImplementedError(
-            "gather='auto' is not ported: its patch-vs-taps crossover must be "
-            "measured on the H100 (ROADMAP queue 1, item 4); pass 'patch' or 'taps'")
-    if rp.gather not in ("patch", "taps"):
-        raise ValueError(f"unknown gather {rp.gather!r}; available: ['patch', 'taps']")
+    """Raise for a RayParams the port cannot run."""
+    if rp.gather not in ("patch", "taps", "auto"):
+        raise ValueError(f"unknown gather {rp.gather!r}; available: ['auto', 'patch', 'taps']")
     if rp.interp not in PATCH_SHAPES:
         raise ValueError(f"unknown interp {rp.interp!r}; available: "
                          f"{sorted(PATCH_SHAPES)}")
@@ -372,6 +369,23 @@ def _use_patch(rp: RayParams) -> bool:
     return rp.gather == "patch" and rp.interp in PATCH_SHAPES
 
 
+# The reference's patch-vs-taps crossover, measured on a TPU: the patch path
+# builds a grid-sized table per flow step and then gathers one row per packet
+# a substep; the taps path builds nothing and gathers every tap of every
+# stage. Kept so that both packages pick the same path for a run;
+# scripts/torch_gather_crossover.py measures where the H100's lies.
+PATCH_TAPS_CROSSOVER = 8
+
+
+def resolve_gather(rp: RayParams, n_packets: int, ny: int, nx: int) -> RayParams:
+    """Replace ``gather='auto'`` by 'patch' iff ``PATCH_TAPS_CROSSOVER *
+    n_packets >= ny * nx``, else 'taps'; 'patch' and 'taps' pass unchanged."""
+    if rp.gather != "auto":
+        return rp
+    use_patch = rp.interp in PATCH_SHAPES and PATCH_TAPS_CROSSOVER * int(n_packets) >= ny * nx
+    return rp._replace(gather="patch" if use_patch else "taps")
+
+
 # --- fixed-step integration --------------------------------------------------
 
 def _as_time(t, like: torch.Tensor) -> torch.Tensor:
@@ -413,7 +427,8 @@ def raytrace_tables(
     table in ``nsubsteps`` fixed substeps. ``t0``/``t1`` are 0-d tensors
     (or floats), taken in the packets' dtype on their device. RK4 runs the
     fused substep over the pair table (``TableSubstep``); DP5 and midpoint
-    run the per-stage path."""
+    run the per-stage path. The table is given, so ``rp.gather`` is not
+    read, as in the reference."""
     check_ray_params(rp)
     h = (_as_time(t1, packets.x) - _as_time(t0, packets.x)) / nsubsteps
     da = 1.0 / nsubsteps
@@ -504,10 +519,12 @@ def raytrace(
     method: str = "rk4",
 ) -> Packets:
     """Advance packets from t0 to t1 through linearly blended flow fields
-    in fixed substeps, by the patch or the taps path (``rp.gather``)."""
+    in fixed substeps, by the patch or the taps path (``rp.gather``,
+    'auto' resolved for these packets and this grid)."""
     check_ray_params(rp)
+    _, ny, nx = fields_old.shape
+    rp = resolve_gather(rp, packets.n, ny, nx)
     if _use_patch(rp):
-        _, ny, nx = fields_old.shape
         return raytrace_tables_fb(packets, build_pair(fields_old, fields_new, rp),
                                   fields_old, fields_new, t0, t1, rp, ny, nx, nsubsteps,
                                   method)
@@ -585,6 +602,7 @@ def raytrace_adaptive(
         raise ValueError(f"unknown loop {loop!r}; available: ['scan', 'while']")
     check_ray_params(rp)
     _, ny, nx = fields_old.shape
+    rp = resolve_gather(rp, packets.n, ny, nx)
     dev = packets.x.device
     t0 = _as_time(t0, packets.x)
     t1 = _as_time(t1, packets.x)

@@ -16,7 +16,14 @@ bfloat16 patch tables) with the PyTorch port and prints:
    pair-table build and its wait on the device included); and, for
    comparison, the first-cut path the table kernels replaced (row gather
    and upcast, transpose, first-cut kernel);
-2. one frame of 5 coupled steps through ``make_coupled_frame`` with the
+2. what a frame's outputs cost the ``CoupledDriver`` of the command line,
+   host wall time (median of 5, the device idle before each): the packet
+   telemetry taken apart (sampling u, v and the gradients at the packets,
+   stacking 10 rows, one copy to the host, cutting the (N, 2|4) arrays)
+   and whole (``_write_packet_frame`` into a writer that keeps nothing),
+   one snapshot's copy to the host and the two RSW diagnostics; no HDF5
+   write;
+3. one frame of 5 coupled steps through ``make_coupled_frame`` with the
    RK4 or the adaptive ray method under ``torch.profiler``: device time by
    kernel name, and the device's busy share of the frame's wall time
    (``--trace DIR`` also writes the Chrome trace there).
@@ -27,17 +34,21 @@ from __future__ import annotations
 
 import argparse
 import os
+import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import DT, HERO_ADAPTIVE, K0, K_CUTOFF, make_case  # noqa: E402
+from chip_smoke import (DT, HERO_ADAPTIVE, K0, K_CUTOFF, DiscardingWriter,  # noqa: E402
+                        make_case)
 from juliaraytracingsw_tpu_torch.core.steppers import zero_clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled.driver import (  # noqa: E402
-    SimState, make_coupled_frame)
+    CoupledDriver, SimState, make_coupled_frame)
+from juliaraytracingsw_tpu_torch.models import rsw  # noqa: E402
 from juliaraytracingsw_tpu_torch.models.base import build_stepper  # noqa: E402
 from juliaraytracingsw_tpu_torch.ops.ray_step import (  # noqa: E402
     first_cut_inputs, fused_attempt, fused_substep, table_attempt, table_substep)
@@ -45,7 +56,8 @@ from juliaraytracingsw_tpu_torch.profiling._timing import card_line, time_ms  # 
 from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.patch import build_patch_table  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.raytrace import (  # noqa: E402
-    _gather_patch_rows, fields_from_psih, make_pair_table, raytrace_adaptive)
+    _gather_patch_rows, fields_from_psih, make_pair_table, raytrace_adaptive,
+    sample_gradients, sample_velocity)
 from juliaraytracingsw_tpu_torch.rays.resample import k_cutoff_reset  # noqa: E402
 
 
@@ -109,6 +121,53 @@ def stages(interp: str, device) -> None:
         print(f"    {name:43s} {time_ms(fn):8.3f} ms")
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host wall milliseconds of ``fn()`` ended by a synchronize,
+    the device idle before each call, after one warm-up call."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def outputs(interp: str, device) -> None:
+    """The cost of a frame's outputs in the command line's driver."""
+    grid, model, sol0, rp, psih_fn = make_case(512, interp, "bfloat16", device)
+    p = lattice_packets(1024, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
+    drv = CoupledDriver(model=model, psih_fn=psih_fn, rp=rp, dt=DT, k_cutoff=K_CUTOFF, k0=K0,
+                        packet_writer=DiscardingWriter(), log_fn=lambda line: None,
+                        diagnostics={"kinetic_energy": lambda s, g, q: rsw.kinetic_energy(s, g),
+                                     "potential_energy": rsw.potential_energy})
+    drv.init(sol0, p)
+    fields = drv.sim.fields
+
+    def sample():
+        return [p.x, p.y, p.k, p.l, *sample_velocity(p, fields, rp),
+                *sample_gradients(p, fields, rp)]
+
+    rows = sample()
+    stacked = torch.stack(rows)
+    host = stacked.cpu().numpy()
+    parts = [
+        ("sample u, v and 4 gradients at the packets", sample),
+        ("stack 10 rows (10, N) float32", lambda: torch.stack(rows)),
+        ("copy (10, N) float32 to the host (40 MB)", lambda: stacked.cpu()),
+        ("cut 4 contiguous (N, 2|4) arrays on the host",
+         lambda: [np.ascontiguousarray(host[a:b].T) for a, b in ((0, 2), (2, 4), (4, 6),
+                                                                  (6, 10))]),
+        ("whole packet telemetry (_write_packet_frame)", drv._write_packet_frame),
+        ("snapshot: copy sol (3, 512, 257) complex64", lambda: drv.sim.sol.cpu().numpy()),
+        ("two RSW diagnostics (_record_diagnostics)", lambda: drv._record_diagnostics(0)),
+    ]
+    for name, fn in parts:
+        print(f"  {name:45s} {host_ms(fn):8.3f} ms")
+
+
 def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
@@ -155,6 +214,9 @@ def main() -> int:
     print(f"card: {card_line()}; torch {torch.__version__}")
     print(f"hero {args.interp}, one coupled step by stage (CUDA events):")
     stages(args.interp, device)
+    print(f"hero {args.interp}, a frame's outputs in the command line's driver (host wall, "
+          f"median of 5, no HDF5 write):")
+    outputs(args.interp, device)
     print(f"hero {args.interp}, one {args.ray_method} frame of 5 coupled steps "
           f"(torch.profiler):")
     profiled_frame(args.interp, args.ray_method, device, args.trace)

@@ -217,9 +217,16 @@ def test_port_never_imports_jax():
 
 @pytest.mark.parametrize("entry", ["core.grid.make_grid", "core.steppers.zero_clock",
                                    "rays.packets.lattice_packets",
-                                   "interop.sim_state_from_numpy"])
+                                   "interop.sim_state_from_numpy",
+                                   "analysis.suite.analyze_run",
+                                   "experiments.__main__.build_parser"])
 def test_entry_points_default_to_the_card(entry):
-    """A caller who names no device runs on the card; the CPU is asked for."""
+    """A caller who names no device runs on the card; the CPU is asked for
+    (``device=``, or the command line's ``--platform``)."""
     module, name = entry.rsplit(".", 1)
     fn = getattr(importlib.import_module(f"juliaraytracingsw_tpu_torch.{module}"), name)
+    if name == "build_parser":
+        for argv in (["rsw"], ["swqg"], ["analyze", "run"]):
+            assert fn().parse_args(argv).platform == "cuda"
+        return
     assert inspect.signature(fn).parameters["device"].default == "cuda"

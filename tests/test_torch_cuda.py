@@ -514,3 +514,36 @@ def test_probe_wrappers_refuse_what_they_cannot_do(cuda_device):
     before = dict(probes.launches)
     out = probes.gather_rows(table.cpu(), rows.cpu())
     assert out.device.type == "cpu" and probes.launches == before
+
+
+@pytest.mark.cuda
+def test_cli_gpu_matches_cpu(tmp_path, cuda_device):
+    """The port's command line at 64^2 x 4,096 packets, patch gather, 20
+    spinup steps and 5 frames of 20, on the card against the CPU:
+    diagnostics within rtol 1e-5, the last packets within 1e-4. Read from
+    the command line's files, or where h5py is not installed (the command
+    line cannot write) from the driver its own setup builds, as
+    ``chip_smoke.py`` phase 6d does."""
+    import importlib.util
+
+    from chip_smoke import cli_outputs
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+
+    have_h5py = importlib.util.find_spec("h5py") is not None
+
+    def argv(platform):
+        return ["rsw", "--nx", "64", "--sqrt-npackets", "64", "--gather", "patch", "--seed", "42",
+                "--ag", "0.5", "--aw", "0.05", "--spinup-T", "0.1", "--T", "0.6",
+                "--output-dt", "0.1", "--out-dir", str(tmp_path / platform),
+                "--platform", platform]
+
+    before = ray_step.table_launches["bilinear"]
+    gd, gp = cli_outputs(argv("cuda"), have_h5py)
+    assert ray_step.table_launches["bilinear"] - before == 100
+    cd, cp = cli_outputs(argv("cpu"), have_h5py)
+    assert sorted(gd) == sorted(cd) == ["kinetic_energy", "potential_energy", "t"]
+    for key in cd:
+        assert len(cd[key]) == 5
+        np.testing.assert_allclose(gd[key], cd[key], rtol=1e-5, err_msg=key)
+    for key in cp:
+        np.testing.assert_allclose(gp[key], cp[key], rtol=0, atol=1e-4, err_msg=key)

@@ -261,6 +261,48 @@ def test_sample_velocity_and_gradients_match_jax(interp):
             np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-6, atol=1e-6)
 
 
+def test_doppler_frequency_matches_jax():
+    pj, pt = _packets(64, seed=8)
+    u, v = (np.random.default_rng(9).standard_normal((2, 64)) * 0.3).astype(np.float32)
+    got = tdisp.doppler_frequency(pt.k, pt.l, torch.as_tensor(u), torch.as_tensor(v), 3.0,
+                                  1.0, pt.sign)
+    want = jdisp.doppler_frequency(pj.k, pj.l, jnp.asarray(u), jnp.asarray(v), 3.0, 1.0,
+                                   pj.sign)
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,ny,nx,interp", [
+    (16, 32, 32, "bilinear"),        # 8 n < cells: taps
+    (128, 32, 32, "bspline"),        # 8 n = cells: patch
+    (1 << 20, 512, 512, "bilinear"),     # the hero: patch
+    (16384, 128, 128, "bicubic"),    # 8 n = 131,072 >= 16,384: patch
+    (262144, 2048, 2048, "bilinear"),    # 2048^2 with 262k packets: taps
+])
+def test_resolve_gather_matches_jax(n, ny, nx, interp):
+    """The reference's rule and constant; explicit modes pass unchanged."""
+    for gather in ("auto", "patch", "taps"):
+        got = trt.resolve_gather(_rp(trt, interp)._replace(gather=gather), n, ny, nx)
+        want = jrt.resolve_gather(_rp(jrt, interp)._replace(gather=gather), n, ny, nx)
+        assert got.gather == want.gather != "auto"
+        assert got._replace(gather="auto") == _rp(trt, interp)._replace(gather="auto")
+
+
+@pytest.mark.parametrize("n,resolved", [(64, "taps"), (128, "patch")])
+def test_raytrace_auto_takes_the_resolved_path(n, resolved):
+    """gather='auto' in ``raytrace`` and ``raytrace_adaptive`` runs the path
+    resolved for the packets and the grid (32^2: patch from 128 packets)."""
+    fo, fn = (torch.as_tensor(f) for f in _fields("bilinear"))
+    _, pt = _packets(n)
+    rp = _rp(trt, "bilinear")
+    got = trt.raytrace(pt, fo, fn, 0.0, 0.03, rp._replace(gather="auto"), 2)
+    want = trt.raytrace(pt, fo, fn, 0.0, 0.03, rp._replace(gather=resolved), 2)
+    assert all(map(torch.equal, got, want))
+    opts = dict(rtol=1e-3, atol=1e-6, max_steps=4, loop="while")
+    got, _ = trt.raytrace_adaptive(pt, fo, fn, 0.0, 0.03, rp._replace(gather="auto"), **opts)
+    want, _ = trt.raytrace_adaptive(pt, fo, fn, 0.0, 0.03, rp._replace(gather=resolved), **opts)
+    assert all(map(torch.equal, got, want))
+
+
 @pytest.mark.parametrize("method", ["rk4", "dopri5"])
 def test_raytrace_taps_matches_jax(method):
     """The fixed-step taps path (the reference semantics), 3 substeps."""
@@ -300,9 +342,13 @@ def test_wrapper_rejects_bad_inputs():
         tops.fused_substep(rows_T, st, scal, rp=rp, interp="cubic", da=1.0)
     with pytest.raises(RuntimeError, match="CPU or CUDA"):
         tops.fused_substep(rows_T.to("meta"), st.to("meta"), scal.to("meta"), **call)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        trt.raytrace_tables(tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160), 0.0,
-                            0.1, rp._replace(gather="auto"), NY, NX)
+    # given its table, raytrace_tables reads no gather, as the reference's;
+    # an unknown one is refused
+    pk, T = tpk.Packets(*st[:5]), torch.zeros(NY * NX, 160)
+    auto = trt.raytrace_tables(pk, T, 0.0, 0.1, rp._replace(gather="auto"), NY, NX)
+    assert all(map(torch.equal, auto, trt.raytrace_tables(pk, T, 0.0, 0.1, rp, NY, NX)))
+    with pytest.raises(ValueError, match="available"):
+        trt.raytrace_tables(pk, T, 0.0, 0.1, rp._replace(gather="rows"), NY, NX)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
