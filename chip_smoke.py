@@ -61,10 +61,21 @@ without them, and on any failed check. Phases, each printing its lines:
    frames, a fresh driver restored from the checkpoint runs the same 2;
    6c. 6a's checkpoint restored into a driver on the CPU, every leaf equal;
    6d. one small run (128^2, 16,384 packets, patch) on the card and on the
-   CPU: diagnostics within rtol 1e-5, the last packets within 1e-4.
+   CPU: diagnostics within rtol 1e-5, the last packets within 1e-4;
+7. the other flow models, each case through the command line's set-up
+   without writers: 7a. ``bench.py:282-310``'s 2048^2 two-layer flow, 40
+   IF-AB3 steps timed, the host seconds of its expm tables; 7b. ``twolayer``
+   at 2048^2 x 262,144 packets ('auto' -> taps); 7c. at 512^2 x 1,048,576
+   ('auto' -> patch, exactly 20 table launches), barotropic and
+   ``--baroclinic``; 7d. 3 layers, 512^2 x 262,144, one frame; 7e.
+   Thomas-Yamada 512^2, ETDRK4, a startup and a main phase through
+   ``ty_driver._phase``, the host seconds of its contour coefficients;
+   7f. ``rsw --model linborg|modified|quadheight`` at the hero's size, one
+   frame each; 7g. each new path on the card against the CPU, held as
+   phase 3 holds a frame.
 
 The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
-5c and 6a) and read after it; the heroes must launch only the table forms. The
+5c, 6a and each coupled case of phase 7) and read after it; the heroes must launch only the table forms. The
 first cut runs on no main path: its launches are phase 2's. Every time
 printed carries the card's name and power limit.
 
@@ -870,18 +881,25 @@ class DiscardingWriter:
         pass
 
 
-def drive_cli(argv: list[str], log_fn, packet_writer=None):
-    """The command line's coupled run without its HDF5 outputs: the case
-    and the driver built by ``experiments.__main__`` itself, then init,
-    spinup, frames and the checkpoint, as its ``rsw`` runs them."""
+def drive_cli(argv: list[str], log_fn, packet_writer=None, marks: list | None = None):
+    """A coupled subcommand's run without its HDF5 outputs: the case and
+    the driver built by ``experiments.__main__`` itself, then init, spinup,
+    (``single-wave``: the injected wave), frames and the checkpoint, as the
+    command line runs them. ``marks`` gets a CUDA event recorded just
+    before the frames."""
     from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
 
     args = cli.build_parser().parse_args(argv)
-    case = cli.setup_rsw(args)
+    case = cli.SETUPS[args.cmd](args)
     drv = cli.make_driver(args, case, packet_writer=packet_writer, log_fn=log_fn)
-    drv.init(case.sol0, case.packets)
+    drv.init(case.sol0, case.packets, clock=cli.start_clock(case, case.sol0.device))
     spinup_steps, frames, steps_per_frame = cli.schedule(args)
     drv.spinup(spinup_steps)
+    if args.cmd == "single-wave":
+        drv.sim = drv.sim._replace(sol=cli.inject(args, case, drv.sim.sol))
+    if marks is not None:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
     drv.run(frames, steps_per_frame)
     if args.checkpoint:
         drv.checkpoint(args.checkpoint)
@@ -1103,6 +1121,326 @@ def phase_cli_gpu_vs_cpu(card: str) -> None:
         raise AssertionError("6d: the command line's GPU and CPU runs disagree")
 
 
+# phase 7: the other flow models. 7a: bench.py:282-310's 2048^2 two-layer
+# flow; the rest through the command line's set-up without writers (the
+# card's machine has no h5py), bilinear bf16 tables, the hero's dt
+TWOLAYER_FLOW_NX, TWOLAYER_FLOW_STEPS = 2048, 40
+TY_NX, TY_STEPS, TY_NSUBS = 512, 40, 10
+VARIANTS = ("linborg", "modified", "quadheight")
+# the hero's IC for the RSW variants (seed 1, ag 0.5, aw 0.05)
+HERO_IC = ("--seed", "1", "--ag", "0.5", "--aw", "0.05")
+
+
+class host_seconds:
+    """Within the block, every call of ``module.name`` appends its host
+    wall seconds to ``self.seconds``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.seconds = module, name, []
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def coupled_argv(cmd: str, nx: int, sqrtp: int, frames: int, *extra: str,
+                 platform: str = "cuda", spinup_steps: int = 0,
+                 gather: str = "auto") -> list[str]:
+    """A coupled subcommand at nx^2 with sqrtp^2 packets, bilinear bf16
+    tables, RK4, the hero's dt (its CFL tune), ``spinup_steps`` flow steps,
+    then ``frames`` frames of 5 steps, no outputs."""
+    dx = 2 * np.pi / nx
+    spinup_T, output_dt = (spinup_steps + 0.5) * DT, 5.5 * DT
+    return [cmd, "--nx", str(nx), "--sqrt-npackets", str(sqrtp), "--interp", "bilinear",
+            "--table-dtype", "bfloat16", "--ray-method", "rk4", "--gather", gather,
+            "--cfltune", repr(DT * 2.0 / dx), "--spinup-T", repr(spinup_T),
+            "--output-dt", repr(output_dt), "--T", repr(spinup_T + (frames + 0.5) * output_dt),
+            "--platform", platform, *extra]
+
+
+def sim_finite(sim) -> bool:
+    from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten
+
+    return all(bool(torch.isfinite(t.abs()).all()) for _, t in _flatten(sim)
+               if isinstance(t, torch.Tensor))
+
+
+def phase_cli_case(card: str, argv: list[str], tag: str, gather: str, launches: int) -> dict:
+    """One coupled subcommand through ``drive_cli`` with its launches
+    counted from 0: 'auto' must resolve to ``gather``, the bilinear table
+    kernel launch ``launches`` times and no other ray kernel; the state
+    finite, |k| < k_cutoff. Coupled steps/s over the frames after the first
+    (or over the one frame, first call included), frame ends by CUDA
+    events."""
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+
+    marks = []
+
+    def log_fn(line):
+        if line.startswith("step:"):
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    ray_step.reset_launches()
+    drv, case, (_, frames, steps_per_frame) = drive_cli(argv, log_fn, marks=marks)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # the diagnostics each frame records before its end mark, timed alone
+    t0 = time.perf_counter()
+    for fn in case.diagnostics.values():
+        fn(drv.sim.sol, case.model.grid, case.model.params).cpu()
+    diag_ms = (time.perf_counter() - t0) * 1e3
+    frame_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    steady = frame_ms[1:] or frame_ms
+    rate = steps_per_frame * len(steady) / (sum(steady) / 1e3)
+    sim = drv.sim
+    kmax = float(torch.sqrt(sim.packets.k ** 2 + sim.packets.l ** 2).max())
+    finite = sim_finite(sim)
+    diags = {k: np.asarray(v) for k, v in drv.diag_series.items()}
+    diag_ok = all(len(v) == frames and np.isfinite(v).all() for v in diags.values())
+    grid = case.model.grid
+    over = (f"over the last {len(steady)} frames" if len(steady) < len(frame_ms)
+            else "over 1 frame, first call included")
+    print(f"{tag} ({argv[0]}, {grid.nx}^2, {sim.packets.n} packets, {frames} x {steps_per_frame} steps, "
+          f"--gather auto -> {drv.rp.gather}): {rate:.2f} coupled steps/s {over} (frame ms "
+          f"{', '.join(f'{m:.2f}' for m in frame_ms)}); table kernel launches "
+          f"{counts['table']['bilinear']}, first-cut launches {counts['first cut']}; "
+          f"diagnostics {sorted(diags)} finite {diag_ok}, {diag_ms:.2f} ms a frame (host "
+          f"clock); max |k| {kmax:.3f} (cutoff "
+          f"{K_CUTOFF}); finite {finite}; no writers [{card}]", flush=True)
+    others = {k: v for k, v in counts["table"].items() if k != "bilinear"}
+    if drv.rp.gather != gather:
+        raise AssertionError(f"{tag}: --gather auto resolved to {drv.rp.gather}, not {gather}")
+    if (counts["table"]["bilinear"] != launches or counts["first cut"] or any(others.values())
+            or any(counts["table attempt"].values())):
+        raise AssertionError(f"{tag}: launched {counts}, not the bilinear table kernel "
+                             f"{launches} times")
+    if not (finite and diag_ok and kmax < K_CUTOFF):
+        raise AssertionError(f"{tag}: the run failed its checks")
+    return dict(launches=counts["table"]["bilinear"], steps_per_s=rate, frame_ms=frame_ms,
+                diag_ms=diag_ms)
+
+
+def phase_twolayer_flow(card: str, device, nx: int = TWOLAYER_FLOW_NX,
+                        steps: int = TWOLAYER_FLOW_STEPS) -> dict:
+    """7a: ``bench.py:282-310``'s flow row: nx^2 two-layer QG, U 0.2, mu
+    1e-2, nnu 4, nu from the hero's dt, IF-AB3 over (2, 2) block tables,
+    the seed-7 IC; ``steps`` steps timed by CUDA events after one warm-up
+    call of as many; the host seconds of the two expm tables."""
+    from juliaraytracingsw_tpu_torch.core import steppers
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.spectral import rfft2
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import derive_nu
+    from juliaraytracingsw_tpu_torch.models import twolayerqg
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper, run
+
+    grid = make_grid(nx, device=device)
+    model = twolayerqg.make_model(grid, U=0.2, mu=1e-2, nu=derive_nu(1.0, nx, 4, DT), nnu=4)
+    with host_seconds(steppers, "expm_tables") as expm:
+        init, step = build_stepper(model, "IFMAB3", DT)
+    phys = np.random.default_rng(7).standard_normal((2, nx, nx)).astype(np.float32)
+    sol0 = rfft2(torch.as_tensor(phys, device=device)) * grid.dealias_mask
+    sol0 = (0.3 * sol0 * torch.exp(-grid.Krsq / 20.0**2) / sol0.abs().max()).to(torch.complex64)
+
+    def energy(sol):
+        ke1, ke2 = twolayerqg.kinetic_energy(sol, grid, model.params)
+        return float(ke1 + ke2 + twolayerqg.potential_energy(sol, grid, model.params))
+
+    def go():
+        return run(step, sol0, zero_clock(device=device), init(sol0), steps)[0]
+
+    ms = events_ms(go, warmup=1, trials=1)[0]
+    sol = go()
+    e0, e1 = energy(sol0), energy(sol)
+    finite = bool(torch.isfinite(torch.view_as_real(sol)).all())
+    rate = steps / (ms / 1e3)
+    print(f"7a twolayer2048_flow ({nx}^2 two-layer QG, IF-AB3 (2, 2) blocks, {steps} steps): "
+          f"{rate:.2f} flow steps/s ({ms:.1f} ms, CUDA events, after a warm-up call); "
+          f"expm_tables host seconds {', '.join(f'{t:.2f}' for t in expm.seconds)} (exp(L dt) "
+          f"and exp(2 L dt): two batched 2x2 scipy.linalg.expm over {grid.nl * grid.nkr} "
+          f"modes); energy "
+          f"{e0:.6e} -> {e1:.6e}, change {abs(e1 - e0) / e0:.3e}; finite {finite} [{card}]",
+          flush=True)
+    if not (finite and np.isfinite(e1)):
+        raise AssertionError("7a: the 2048^2 two-layer flow is not finite")
+    return dict(steps_per_s=rate, expm_s=expm.seconds, dE=abs(e1 - e0) / e0)
+
+
+def phase_thomasyamada(card: str, device, nx: int = TY_NX, steps: int = TY_STEPS,
+                       nsubs: int = TY_NSUBS) -> dict:
+    """7e: Thomas-Yamada at nx^2, ETDRK4, the command line's configuration
+    (``setup_thomasyamada``): a startup phase and a main phase of ``steps``
+    steps each through ``ty_driver._phase`` without a writer, chunks of
+    ``nsubs``; steps/s over each phase's chunks after the first (CUDA
+    events at the chunks' log lines), the host seconds of
+    ``_etdrk4_coeffs``, the last energies."""
+    from juliaraytracingsw_tpu_torch.core import steppers
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled import ty_driver
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import ty_initial_condition
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.models import thomasyamada
+
+    marks = {"startup": [], "main": []}
+
+    def log_fn(line):
+        label = line[1:line.index("]")]
+        marks[label].append(torch.cuda.Event(enable_timing=True))
+        marks[label][-1].record()
+        print(f"  [7e] {line}")
+
+    args = cli.build_parser().parse_args(["thomasyamada", "--nx", str(nx), "--platform",
+                                          torch.device(device).type])
+    cfg = cli.setup_thomasyamada(args, log_fn)
+    grid = make_grid(nx, Lx=cfg.Lx, device=device)
+    model = thomasyamada.make_model(grid, nu=cfg.nu, nnu=cfg.nnu, Ro=cfg.Ro)
+    sol = ty_initial_condition(grid, np.random.default_rng(cfg.seed), cfg.k0g_range,
+                               cfg.k0w_range, cfg.at, cfg.ag, cfg.aw)
+    clock = zero_clock(device=device)
+    diags = {k: [] for k in ty_driver.DIAG_KEYS}
+    start = time.time()
+    with host_seconds(steppers, "_etdrk4_coeffs") as coeffs:
+        for label, dt in (("startup", cfg.startup_dt), ("main", cfg.dt)):
+            sol, clock = ty_driver._phase(model, cfg, sol, clock, dt, steps, nsubs, None,
+                                          diags, label, start)
+    torch.cuda.synchronize()
+    rates = {}
+    for label, ev in marks.items():
+        ms = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+        rates[label] = nsubs * len(ms) / (sum(ms) / 1e3)
+    last = {k: v[-1] for k, v in diags.items()}
+    finite = all(np.isfinite(v).all() for v in diags.values()) and bool(
+        torch.isfinite(torch.view_as_real(sol)).all())
+    print(f"7e Thomas-Yamada ({nx}^2, {cfg.stepper}, startup dt {cfg.startup_dt:g} and main "
+          f"dt {cfg.dt:g}, {steps} steps each in chunks of {nsubs}, no writer): steps/s over "
+          f"the last {steps // nsubs - 1} chunks (diagnostics included) startup "
+          f"{rates['startup']:.2f}, main {rates['main']:.2f}; _etdrk4_coeffs host seconds "
+          f"{', '.join(f'{t:.2f}' for t in coeffs.seconds)}; at t={last['t']:.3f} wave KE "
+          f"{last['wave_ke']:.6e}, PE {last['wave_pe']:.6e}, geo KE {last['geo_ke']:.6e}, PE "
+          f"{last['geo_pe']:.6e}, barotropic {last['barotropic']:.6e}; finite {finite} "
+          f"[{card}]", flush=True)
+    if not finite or len(coeffs.seconds) != 2:
+        raise AssertionError("7e: the Thomas-Yamada run failed its checks")
+    return dict(steps_per_s=rates, coeffs_s=coeffs.seconds)
+
+
+def rel_err(gpu: torch.Tensor, cpu: torch.Tensor) -> float:
+    """max |gpu - cpu| over max |cpu|."""
+    return float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+def phase_models_gpu_vs_cpu(card: str) -> None:
+    """7g: each new path on the card against the CPU, held as phase 3
+    holds one frame (sol FRAME_SOL_RTOL of its largest mode, packets
+    FRAME_PACKET_ATOL): a 128^2 two-layer coupled frame, a 64^2 3-layer
+    frame and a 64^2 single-wave frame through the command line's set-up;
+    TY ETDRK4 at 64^2 after 10 and 20 steps; 10 steps of IFRK4,
+    FilteredAB3 and FilteredRK4 on the hero's RSW at 64^2."""
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import ty_initial_condition
+    from juliaraytracingsw_tpu_torch.models import thomasyamada
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper, run
+
+    quiet = lambda line: None   # noqa: E731
+    rows = []
+    frames = {
+        "two-layer coupled frame, 128^2, 16384 packets": ("twolayer", 128, 128, ()),
+        "3-layer coupled frame, 64^2, 4096 packets": ("twolayer", 64, 64, ("--nlayers", "3")),
+        "single-wave frame, 64^2, 2 packets, 5 spinup steps": ("single-wave", 64, 1, ()),
+    }
+    for what, (cmd, nx, sqrtp, extra) in frames.items():
+        spinup = 5 if cmd == "single-wave" else 0
+        sims = [drive_cli(coupled_argv(cmd, nx, sqrtp, 1, *extra, platform=platform,
+                                       spinup_steps=spinup), quiet)[0].sim
+                for platform in ("cuda", "cpu")]
+        pk = max(float((getattr(sims[0].packets, n).cpu() - getattr(sims[1].packets, n))
+                       .abs().max()) for n in ("x", "y", "k", "l"))
+        rows.append((what, rel_err(sims[0].sol, sims[1].sol), pk))
+
+    def stepped(make, stepper, nsteps_list):
+        """sol after each count of ``nsteps_list`` (cumulative) on both
+        devices -> [(steps, rel err)]."""
+        out = {}
+        for device in ("cuda", "cpu"):
+            model, sol = make(device)
+            init, step = build_stepper(model, stepper, DT)
+            clock, state, done = zero_clock(device=device), init(sol), 0
+            for n in nsteps_list:
+                sol, clock, state = run(step, sol, clock, state, n - done)
+                done = n
+                out.setdefault(n, []).append(sol)
+        return [(n, rel_err(*sols)) for n, sols in out.items()]
+
+    def rsw64(device):
+        _, model, sol0, _, _ = make_case(64, "bilinear", "float32", device)
+        return model, sol0
+
+    def ty64(device):
+        grid = make_grid(64, device=device)
+        model = thomasyamada.make_model(grid)
+        sol = ty_initial_condition(grid, np.random.default_rng(5678), (2, 6), (0, 4), 0.1,
+                                   0.1, 0.05)
+        return model, sol
+
+    for stepper in ("IFRK4", "FilteredAB3", "FilteredRK4"):
+        for n, err in stepped(rsw64, stepper, [10]):
+            rows.append((f"{stepper} on RSW 64^2, {n} steps", err, None))
+    for n, err in stepped(ty64, "ETDRK4", [10, 20]):
+        rows.append((f"ETDRK4 on TY 64^2, {n} steps", err, None))
+    for what, sol_err, pk_err in rows:
+        pk = "" if pk_err is None else (f", packet max abs err {pk_err:.3e} (limit "
+                                        f"{FRAME_PACKET_ATOL})")
+        print(f"7g GPU vs CPU, {what}: sol rel err {sol_err:.3e} (limit {FRAME_SOL_RTOL})"
+              f"{pk} [{card}]", flush=True)
+    bad = [what for what, sol_err, pk_err in rows
+           if not (sol_err < FRAME_SOL_RTOL and (pk_err is None or pk_err < FRAME_PACKET_ATOL))]
+    if bad:
+        raise AssertionError(f"7g: GPU and CPU disagree in {bad}")
+
+
+def phase_models(card: str, device) -> dict:
+    """Phase 7; returns the bilinear table kernel's launches per path."""
+    t0 = time.perf_counter()
+    print("phase 7 runs every command line case without writers: the card's machine has "
+          "no h5py; twolayer --ic-file, twolayer-simulation and the TY restart are held "
+          "by the CPU tests", flush=True)
+    phase_twolayer_flow(card, device)
+    launches = {}
+    # 7b: the reference's production two-layer raytracing size; taps
+    phase_cli_case(card, coupled_argv("twolayer", 2048, 512, 4), "7b", "taps", 0)
+    # 7c: the ray kernel on the two-layer flow, barotropic and baroclinic
+    for extra in ((), ("--baroclinic",)):
+        tag = "7c" + (" baroclinic" if extra else "")
+        launches[tag] = phase_cli_case(card, coupled_argv("twolayer", 512, 1024, 4, *extra),
+                                       tag, "patch", 20)["launches"]
+    launches["7d"] = phase_cli_case(card, coupled_argv("twolayer", 512, 512, 1, "--nlayers",
+                                                       "3"), "7d 3 layers", "patch",
+                                    5)["launches"]
+    phase_thomasyamada(card, device)
+    for model in VARIANTS:
+        launches[f"7f {model}"] = phase_cli_case(
+            card, coupled_argv("rsw", 512, 1024, 1, "--model", model, *HERO_IC),
+            f"7f {model}", "patch", 5)["launches"]
+    phase_models_gpu_vs_cpu(card)
+    print(f"phase 7 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false",
@@ -1171,6 +1509,8 @@ def main() -> int:
         phase_resume(card, device)
         phase_restore_on_cpu(card, out_dir, cli.pop("sim"))
     phase_cli_gpu_vs_cpu(card)
+    # phase 7: the other flow models; each path's launches counted from 0
+    model_launches = phase_models(card, device)
     for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
@@ -1182,7 +1522,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": f"ray_step_rk4_table_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": counts[interp],
-         "cli_launches": cli["table_counts"][interp], "table_dtype": hero_dtype,
+         "cli_launches": cli["table_counts"][interp],
+         **({"model_launches": model_launches} if interp == "bilinear" else {}),
+         "table_dtype": hero_dtype,
          **tables[interp, hero_dtype], "fwd_bwd_ms": fwd_bwd[interp, hero_dtype]}
         for interp in INTERPS] + [
         {"name": f"ray_attempt_dp5_table_{interp}", "route": "cuda", "source": ATTEMPT_SOURCE,

@@ -1,4 +1,14 @@
-"""IF-AB3 time stepper (port of the IF-AB3 part of ``core/steppers.py``).
+"""Time steppers for stiff pseudo-spectral systems (port of
+``core/steppers.py``):
+
+- ``make_ifab3``: AB3 with a matrix-exponential integrating factor, for
+  diagonal or ``(C, C, nl, nkr)`` block operators (tables precomputed on
+  the host in float64);
+- ``make_ifrk4``: integrating-factor RK4 with ``exp(L dt/2)`` tables;
+- ``make_etdrk4``: Cox-Matthews ETDRK4 with Kassam-Trefethen contour
+  coefficients, for diagonal L;
+- ``make_filtered_ab3`` / ``make_filtered_rk4``: classic AB3 / RK4 on the
+  whole right-hand side ``L sol + N``, with an optional spectral filter.
 
 Steppers share the reference's protocol::
 
@@ -18,7 +28,8 @@ import scipy.linalg
 import torch
 
 __all__ = ["Clock", "tick", "zero_clock", "apply_L", "expm_tables",
-           "AB3State", "make_ifab3"]
+           "AB3State", "EmptyState", "make_ifab3", "make_ifrk4", "make_etdrk4",
+           "make_filtered_ab3", "make_filtered_rk4"]
 
 AB3_H1, AB3_H2, AB3_H3 = 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0
 
@@ -116,5 +127,170 @@ def make_ifab3(
         if filt is not None:
             new = new * filt
         return new, tick(clock, dt), AB3State(N, state.N1)
+
+    return init, step
+
+
+class EmptyState(NamedTuple):
+    """The state of the one-step steppers: nothing."""
+
+
+def make_ifrk4(
+    L: torch.Tensor,
+    calcN: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    dt: float,
+    filt: torch.Tensor | None = None,
+):
+    """Integrating-factor RK4. With E = exp(L dt/2)::
+
+        k1 = N(u, t)
+        k2 = N(E u + dt/2 E k1, t + dt/2)
+        k3 = N(E u + dt/2 k2, t + dt/2)
+        k4 = N(E^2 u + dt E k3, t + dt)
+        u' = E^2 u + dt/6 (E^2 k1 + 2 E (k2 + k3) + k4)"""
+    exph, _ = expm_tables(L, dt / 2.0)
+
+    def E(x):
+        return apply_L(exph, x)
+
+    def init(sol0):
+        return EmptyState()
+
+    def step(sol, clock: Clock, state: EmptyState):
+        t = clock.t
+        k1 = calcN(sol, t)
+        Eu = E(sol)
+        k2 = calcN(Eu + 0.5 * dt * E(k1), t + 0.5 * dt)
+        k3 = calcN(Eu + 0.5 * dt * k2, t + 0.5 * dt)
+        E2u = E(Eu)
+        k4 = calcN(E2u + dt * E(k3), t + dt)
+        new = E2u + dt / 6.0 * (E(E(k1)) + 2.0 * E(k2 + k3) + k4)
+        if filt is not None:
+            new = new * filt
+        return new, tick(clock, dt), state
+
+    return init, step
+
+
+def _etdrk4_coeffs(L_diag: np.ndarray, dt: float, n_contour: int = 32):
+    """Kassam-Trefethen contour means of the phi-function coefficients,
+    in float64 on the host -> (E, E2, Q, f1, f2, f3)."""
+    Lh = np.asarray(L_diag).astype(np.complex128) * dt
+    E = np.exp(Lh)
+    E2 = np.exp(Lh / 2.0)
+    M = n_contour
+    r = np.exp(2j * np.pi * (np.arange(1, M + 1) - 0.5) / M)  # unit circle
+    LR = Lh[..., None] + r
+    Q = dt * np.real(np.mean((np.exp(LR / 2.0) - 1.0) / LR, axis=-1))
+    f1 = dt * np.real(
+        np.mean((-4.0 - LR + np.exp(LR) * (4.0 - 3.0 * LR + LR**2)) / LR**3, axis=-1)
+    )
+    f2 = dt * np.real(
+        np.mean((2.0 + LR + np.exp(LR) * (-2.0 + LR)) / LR**3, axis=-1)
+    )
+    f3 = dt * np.real(
+        np.mean((-4.0 - 3.0 * LR - LR**2 + np.exp(LR) * (4.0 - LR)) / LR**3, axis=-1)
+    )
+    return E, E2, Q, f1, f2, f3
+
+
+def make_etdrk4(
+    L_diag: torch.Tensor,
+    calcN: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    dt: float,
+    filt: torch.Tensor | None = None,
+):
+    """Cox-Matthews ETDRK4 for a diagonal linear operator. The tables take
+    L's precision (float64 or complex128 L gives double tables) and stay
+    real where they are real to round-off; they live on L's device."""
+    Lnp = L_diag.detach().cpu().numpy()
+    double = Lnp.dtype in (np.float64, np.complex128)
+
+    def cvt(a):
+        if np.iscomplexobj(a) and np.max(np.abs(a.imag)) < 1e-14 * max(
+            1.0, np.max(np.abs(a.real))
+        ):
+            a = a.real
+        if np.iscomplexobj(a):
+            a = a.astype(np.complex128 if double else np.complex64)
+        else:
+            a = a.astype(np.float64 if double else np.float32)
+        return torch.as_tensor(np.ascontiguousarray(a), device=L_diag.device)
+
+    E, E2, Q, f1, f2, f3 = map(cvt, _etdrk4_coeffs(Lnp, dt))
+
+    def init(sol0):
+        return EmptyState()
+
+    def step(sol, clock: Clock, state: EmptyState):
+        t = clock.t
+        Nu = calcN(sol, t)
+        a = E2 * sol + Q * Nu
+        Na = calcN(a, t + dt / 2.0)
+        b = E2 * sol + Q * Na
+        Nb = calcN(b, t + dt / 2.0)
+        c = E2 * a + Q * (2.0 * Nb - Nu)
+        Nc = calcN(c, t + dt)
+        new = E * sol + f1 * Nu + 2.0 * f2 * (Na + Nb) + f3 * Nc
+        if filt is not None:
+            new = new * filt
+        return new, tick(clock, dt), state
+
+    return init, step
+
+
+def make_filtered_ab3(
+    L: torch.Tensor,
+    calcN: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    dt: float,
+    filt: torch.Tensor | None = None,
+):
+    """Classic AB3 on RHS = L sol + N, then the filter, with a
+    forward-Euler bootstrap for steps < 3 (host ``Clock.step``)."""
+
+    def rhs(sol, t):
+        return apply_L(L, sol) + calcN(sol, t)
+
+    def init(sol0):
+        z = torch.zeros_like(sol0)
+        return AB3State(z, z)
+
+    def step(sol, clock: Clock, state: AB3State):
+        R = rhs(sol, clock.t)
+        if clock.step < 3:
+            new = sol + dt * R
+        else:
+            new = sol + dt * (AB3_H1 * R - AB3_H2 * state.N1 + AB3_H3 * state.N2)
+        if filt is not None:
+            new = new * filt
+        return new, tick(clock, dt), AB3State(R, state.N1)
+
+    return init, step
+
+
+def make_filtered_rk4(
+    L: torch.Tensor,
+    calcN: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    dt: float,
+    filt: torch.Tensor | None = None,
+):
+    """Classic RK4 on RHS = L sol + N, then the filter."""
+
+    def rhs(sol, t):
+        return apply_L(L, sol) + calcN(sol, t)
+
+    def init(sol0):
+        return EmptyState()
+
+    def step(sol, clock: Clock, state: EmptyState):
+        t = clock.t
+        k1 = rhs(sol, t)
+        k2 = rhs(sol + 0.5 * dt * k1, t + 0.5 * dt)
+        k3 = rhs(sol + 0.5 * dt * k2, t + 0.5 * dt)
+        k4 = rhs(sol + dt * k3, t + dt)
+        new = sol + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        if filt is not None:
+            new = new * filt
+        return new, tick(clock, dt), state
 
     return init, step

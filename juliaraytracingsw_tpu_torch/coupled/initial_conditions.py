@@ -11,7 +11,7 @@ import torch
 
 from ..core.spectral import enforce_reality, rfft2
 
-__all__ = ["random_band_psih", "band_geo_wave_ic", "front_ic"]
+__all__ = ["random_band_psih", "band_geo_wave_ic", "front_ic", "ty_initial_condition"]
 
 
 def _grid_np(t: torch.Tensor) -> np.ndarray:
@@ -115,4 +115,40 @@ def front_ic(grid, rng, n_waves=10, aw=0.1, f=3.0, Cg=1.0):
     vw = np.fft.irfft2(vwh, s=(grid.ny, grid.nx))
     s = aw / max(np.sqrt(uw**2 + vw**2).max(), 1e-30)
     sol = np.stack([uwh * s, vwh * s, etawh * s]).astype(np.complex64)
+    return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)
+
+
+def ty_initial_condition(grid, rng, k0g_range=(0, 1), k0w_range=(0, 1),
+                         at=0.0, ag=0.0, aw=0.0):
+    """Eigenbasis-projected random Thomas-Yamada state ``(4, nl, nkr)``
+    complex64: independent random phases for the barotropic
+    streamfunction, the geostrophic baroclinic mode (on Phi0) and the two
+    wave modes (Phi+, Phi-), band-limited on |K| by ``k0g_range`` and
+    ``k0w_range`` and normalised so the largest physical amplitude of each
+    family is (at, ag, aw); the barotropic variable is zeta = -K^2 psi."""
+    from ..models.thomasyamada import ty_bases
+
+    Krsq = _grid_np(grid.Krsq)
+    geo_f = (Krsq >= k0g_range[0] ** 2) & (Krsq <= k0g_range[1] ** 2)
+    wave_f = (Krsq >= k0w_range[0] ** 2) & (Krsq <= k0w_range[1] ** 2)
+
+    def phases():
+        return np.exp(2j * np.pi * rng.random(Krsq.shape))
+
+    Phi0, Phip, Phim = (b.cpu().numpy().astype(np.complex128) for b in ty_bases(grid))
+
+    psith = phases() * geo_f
+    gh = Phi0 * (phases() * geo_f)[None]          # (3, nl, nkr) (uc, vc, pc)
+    wh = (Phip * phases()[None] + Phim * phases()[None]) * wave_f[None]
+
+    def norm_to(fieldh, target):
+        phys = np.fft.irfft2(fieldh, s=(grid.ny, grid.nx))
+        return target / max(np.abs(phys).max(), 1e-30)
+
+    psith = psith * norm_to(psith, at)
+    gh = gh * norm_to(gh[0], ag)
+    wh = wh * norm_to(wh[0], aw)
+
+    zth = -Krsq * psith
+    sol = np.stack([zth, gh[0] + wh[0], gh[1] + wh[1], gh[2] + wh[2]]).astype(np.complex64)
     return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)

@@ -6,11 +6,22 @@
 
 Subcommands ported:
 
-    rsw       RSW turbulence + packet ensemble (``--model rsw``), with the
-              band-limited geostrophic + wave IC (``--ic band``) or random
-              wave fronts (``--ic front``)
-    swqg      SWQG turbulence + packets
-    analyze   offline analysis suite over one or more finished run dirs
+    rsw                  RSW turbulence + packet ensemble, ``--model``
+                         rsw|linborg|modified|quadheight, with the
+                         band-limited geostrophic + wave IC (``--ic band``)
+                         or random wave fronts (``--ic front``)
+    swqg                 SWQG turbulence + packets
+    twolayer             two-layer QG + packets (``--baroclinic``: the
+                         baroclinic advecting flow; ``--ic-file``: a
+                         ``twolayer-simulation`` file; ``--nlayers n > 2``:
+                         the n-layer model, packets in the depth-weighted
+                         mean flow)
+    twolayer-simulation  two-layer spin-up writing an initial-condition file
+                         (``--freely-evolving``: FilteredAB3)
+    thomasyamada         two-phase Thomas-Yamada run (``--restart-file``)
+    single-wave          one enveloped wave injected into spun-up RSW, with
+                         two packets at its centre
+    analyze              offline analysis suite over finished run dirs
 
 Common flow per run: derive dt from the CFL tune and the hyperviscosity,
 build the model and the ``CoupledDriver``, spin up, then coupled frames
@@ -34,7 +45,8 @@ import numpy as np
 import torch
 
 __all__ = ["build_parser", "run", "main", "Case", "setup_rsw", "setup_swqg",
-           "schedule", "make_driver"]
+           "setup_twolayer", "setup_single_wave", "setup_thomasyamada", "SETUPS",
+           "inject", "start_clock", "schedule", "make_driver"]
 
 
 def _not_ported(what: str, item: str) -> SystemExit:
@@ -45,11 +57,7 @@ def _not_ported(what: str, item: str) -> SystemExit:
 
 # subcommands of the JAX command line that wait for their ROADMAP item
 _UNPORTED_COMMANDS = {
-    "twolayer": "item 8",
-    "thomasyamada": "item 9",
     "steady-raytracing": "item 12",
-    "twolayer-simulation": "item 8",
-    "single-wave": "item 9",
     "sweep": "item 12",
     "omega-k": "item 12",
     "omega-k-plot": "item 12",
@@ -143,8 +151,6 @@ def _reject_unported(args):
     for attr, flag, item in _UNPORTED_OPTIONS:
         if getattr(args, attr, False):
             raise _not_ported(flag, item)
-    if getattr(args, "model", "rsw") != "rsw":
-        raise _not_ported(f"--model {args.model}", "item 8")
 
 
 def _setup(args):
@@ -162,7 +168,10 @@ def _setup(args):
 class Case(NamedTuple):
     """What a coupled subcommand builds before it runs: the model, the
     advecting streamfunction, the resolved ray parameters, the initial
-    state, the diagnostics and the default snapshot file base."""
+    state, the diagnostics and the default snapshot file base; ``k0`` the
+    packets' reset wavenumber where it is not the command line's
+    (``single-wave``), ``t0`` the start time where it is not 0
+    (``twolayer --ic-file``)."""
 
     model: object
     psih_fn: Callable
@@ -173,6 +182,8 @@ class Case(NamedTuple):
     Cg: float
     diagnostics: dict
     base: str
+    k0: float | None = None
+    t0: float | None = None
 
 
 def _k0(args, f: float, Cg: float) -> float:
@@ -188,39 +199,68 @@ def _ray_params(args, grid, f: float, Cg: float):
     return resolve_gather(rp, args.sqrt_npackets ** 2, grid.ny, grid.nx)
 
 
+def _rsw_psih_fn(grid, f: float, Cg: float):
+    """PV inversion of an RSW (u, v, eta) state: the advecting
+    streamfunction."""
+    def psih_fn(sol):
+        Kd2 = f * f / (Cg * Cg)
+        qh = grid.ik * sol[1] - grid.il * sol[0] - f * sol[2]
+        return -qh / (grid.Krsq + Kd2)
+    return psih_fn
+
+
+def _rsw_diagnostics(rsw):
+    return {
+        "kinetic_energy": lambda s, g, p: rsw.kinetic_energy(s, g),
+        "potential_energy": lambda s, g, p: rsw.potential_energy(s, g, p),
+    }
+
+
 def setup_rsw(args) -> Case:
-    """The ``rsw`` subcommand's model, IC, packets and diagnostics; sets
-    ``args.dt``."""
+    """The ``rsw`` subcommand's model (``--model``), IC, packets and
+    diagnostics; sets ``args.dt``."""
+    from ..core.spectral import irfft2, rfft2
     from ..coupled.initial_conditions import band_geo_wave_ic, front_ic
-    from ..models import rsw
+    from ..models import linborg, modified_sw, quadheight, rsw
     from ..rays.packets import lattice_packets
 
     grid, dt, nu, rng = _setup(args)
     args.dt = dt
     f, Cg = args.f_over_cg * args.cg, args.cg
-    model = rsw.make_model(grid, nu=nu, nnu=args.nnu, f=f, Cg=Cg)
+    factory = {"rsw": rsw, "linborg": linborg, "modified": modified_sw,
+               "quadheight": quadheight}[args.model]
+    model = factory.make_model(grid, nu=nu, nnu=args.nnu, f=f, Cg=Cg)
     if args.ic == "front":
         sol0 = front_ic(grid, rng, n_waves=10, aw=args.aw, f=f, Cg=Cg)
     else:
         sol0 = band_geo_wave_ic(grid, rng, Kg=tuple(args.Kg), Kw=tuple(args.Kw),
                                 ag=args.ag, aw=args.aw, f=f, Cg=Cg)
 
-    def psih_fn(sol):
-        Kd2 = f * f / (Cg * Cg)
-        qh = grid.ik * sol[1] - grid.il * sol[0] - f * sol[2]
-        return -qh / (grid.Krsq + Kd2)
+    if args.model == "quadheight":
+        # prognostic m = 1/(1 + eta): convert the (u, v, eta) IC
+        sol0 = quadheight.set_solution(sol0[0], sol0[1], sol0[2], grid)
+        eta_psih_fn = _rsw_psih_fn(grid, f, Cg)
 
-    diags = {
-        "kinetic_energy": lambda s, g, p: rsw.kinetic_energy(s, g),
-        "potential_energy": lambda s, g, p: rsw.potential_energy(s, g, p),
-    }
+        def psih_fn(sol):
+            # eta = 1/m - 1, then the PV inversion
+            etah = rfft2(1.0 / irfft2(sol[2], grid.nx) - 1.0)
+            return eta_psih_fn(torch.stack([sol[0], sol[1], etah]))
+
+        diags = {
+            "kinetic_energy": lambda s, g, p: quadheight.kinetic_energy(s, g),
+            "potential_energy": lambda s, g, p: quadheight.potential_energy(s, g, p),
+        }
+    else:
+        psih_fn = _rsw_psih_fn(grid, f, Cg)
+        diags = _rsw_diagnostics(rsw)
+
     rp = _ray_params(args, grid, f, Cg)
     if args.with_packets:
         packets = lattice_packets(args.sqrt_npackets, grid.Lx, grid.Ly, k0=_k0(args, f, Cg),
                                   k_ring=args.k_ring, device=grid.device)
     else:
         packets = lattice_packets(1, grid.Lx, grid.Ly, k0=1.0, device=grid.device)
-    return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, "rsw")
+    return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, args.model)
 
 
 def setup_swqg(args) -> Case:
@@ -250,6 +290,185 @@ def setup_swqg(args) -> Case:
     return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, "swqg")
 
 
+def _twolayer_ic_file(args, grid, U: float, mu: float, log_fn: Callable):
+    """Adopt an initial-condition file's psih, t0, dt, U, mu and drho/rho0
+    (the layout ``twolayer-simulation`` writes and the reference reads);
+    nu is re-derived for the adopted dt -> (psih0, U, mu, nu, t0)."""
+    from ..coupled.driver import derive_nu
+    from ..io.jld2 import load_twolayer_ic
+
+    psih_np, t0, params, dt_file = load_twolayer_ic(args.ic_file)
+    Uf = np.asarray(params.get("U", U))
+    if Uf.ndim and Uf.size == 2 and not np.isclose(Uf[0], -Uf[1]):
+        log_fn(f"WARNING: IC file stores asymmetric layer velocities U={Uf.tolist()}; "
+               f"this model supports only (+U, -U) and adopts max|U| — results will "
+               f"differ from the reference")
+    U = float(np.max(np.abs(Uf))) if Uf.ndim else float(Uf)
+    mu = float(params.get("μ", mu))
+    dt = args.dt = float(dt_file)
+    nu = derive_nu(args.nutune, args.nx, args.nnu, dt)
+    bfield = np.asarray(params.get("b", ()))
+    if bfield.size == 2 and bfield[0] != 0:
+        args.drho_rho0 = float((bfield[0] - bfield[1]) / bfield[0])
+    log_fn(f"IC file {args.ic_file}: t0={t0:.3f} U={U} mu={mu} dt={dt} "
+           f"drho_rho0={args.drho_rho0} (file values adopted)")
+    if psih_np.shape != (2, grid.ny, grid.nkr):
+        raise SystemExit(f"IC psih shape {psih_np.shape} does not match grid "
+                         f"(2, {grid.ny}, {grid.nkr}) — pass the matching --nx")
+    psih0 = torch.as_tensor(np.asarray(psih_np, np.complex64), device=grid.device)
+    return psih0, U, mu, nu, float(t0)
+
+
+def _setup_multilayer(args, grid, nu, rng, f, Cg) -> Case:
+    """``twolayer --nlayers n`` with n > 2: the n-layer model (equal depths,
+    shear spread linearly from +U to -U, F/2 per interface), packets
+    advected by the depth-weighted mean streamfunction."""
+    from ..coupled.initial_conditions import random_band_psih
+    from ..models import multilayerqg as mlqg
+    from ..rays.packets import lattice_packets
+
+    if args.ic_file:
+        raise SystemExit("--ic-file is two-layer-only (its reference layout stores "
+                         "exactly two layers)")
+    if args.baroclinic:
+        raise SystemExit("--baroclinic is two-layer-only; the n-layer path advects with "
+                         "the depth-weighted barotropic mean")
+    n, U = args.nlayers, args.U
+    F = 2.0 * f * f / (Cg * Cg) / args.drho_rho0
+    model = mlqg.make_model(grid, U=tuple(float(u) for u in np.linspace(U, -U, n)),
+                            beta=0.0, mu=args.mu, nu=nu, nnu=args.nnu,
+                            Fcoup=tuple(F / 2.0 for _ in range(n - 1)))
+    psih0 = torch.stack([random_band_psih(grid, rng, kband=tuple(args.Kg), amp=args.ag)
+                         for _ in range(n)])
+    sol0 = mlqg.pv_from_streamfunction(psih0, grid, model.params)
+    psi_from_q = model.extras["psi_from_q"]
+    w = torch.as_tensor(np.asarray(model.params.delta, np.float32),
+                        device=grid.device)[:, None, None]
+
+    def psih_fn(s):
+        return (w * psi_from_q(s)).sum(0)
+
+    rp = _ray_params(args, grid, f, Cg)
+    packets = lattice_packets(args.sqrt_npackets, grid.Lx, grid.Ly, k0=_k0(args, f, Cg),
+                              k_ring=args.k_ring, device=grid.device)
+    diags = {
+        "kinetic_energy": lambda s, g, p: torch.stack(mlqg.kinetic_energy(s, g, p)),
+        "potential_energy": lambda s, g, p: torch.stack(mlqg.potential_energy(s, g, p)),
+    }
+    return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, f"{n}Lqg")
+
+
+def setup_twolayer(args, log_fn: Callable = print) -> Case:
+    """The ``twolayer`` subcommand's model, IC (``--ic-file`` or two
+    band-limited layers), packets and diagnostics; sets ``args.dt``."""
+    from ..coupled.initial_conditions import random_band_psih
+    from ..models import twolayerqg
+    from ..rays.packets import lattice_packets
+
+    grid, dt, nu, rng = _setup(args)
+    args.dt = dt
+    f, Cg = args.f, args.cg
+    if args.nlayers > 2:
+        return _setup_multilayer(args, grid, nu, rng, f, Cg)
+    U, mu, psih0, t0 = args.U, args.mu, None, None
+    if args.ic_file:
+        psih0, U, mu, nu, t0 = _twolayer_ic_file(args, grid, U, mu, log_fn)
+    model = twolayerqg.make_model(grid, U=U, mu=mu, nu=nu, nnu=args.nnu, f0=f, Cg=Cg,
+                                  drho_rho0=args.drho_rho0)
+    if psih0 is None:
+        psih0 = torch.stack([random_band_psih(grid, rng, kband=tuple(args.Kg), amp=args.ag)
+                             for _ in range(2)])
+    sol0 = twolayerqg.pv_from_streamfunction(psih0, grid, model.params)
+    sgn = -1.0 if args.baroclinic else 1.0
+
+    def psih_fn(s):
+        # barotropic (psi1 + psi2)/2 or baroclinic (psi1 - psi2)/2 advection
+        psih = twolayerqg.streamfunction_from_pv(s, grid, model.params)
+        return 0.5 * (psih[0] + sgn * psih[1])
+
+    rp = _ray_params(args, grid, f, Cg)
+    packets = lattice_packets(args.sqrt_npackets, grid.Lx, grid.Ly, k0=_k0(args, f, Cg),
+                              k_ring=args.k_ring, device=grid.device)
+    diags = {
+        "kinetic_energy": lambda s, g, p: torch.stack(twolayerqg.kinetic_energy(s, g, p)),
+        "potential_energy": lambda s, g, p: twolayerqg.potential_energy(s, g, p),
+    }
+    return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, "2Lqg", t0=t0)
+
+
+def setup_single_wave(args) -> Case:
+    """The ``single-wave`` subcommand's RSW model, geostrophic IC (no wave
+    part), the two packets (one per branch) at the envelope's centre with
+    the injected wavevector, and diagnostics; sets ``args.dt``. The wave
+    itself is injected after the spinup (``inject``)."""
+    from ..coupled.initial_conditions import band_geo_wave_ic
+    from ..models import rsw
+    from ..rays.packets import Packets
+    from ..rays.raytrace import RayParams, resolve_gather
+
+    grid, dt, nu, rng = _setup(args)
+    args.dt = dt
+    f, Cg = args.f_over_cg * args.cg, args.cg
+    model = rsw.make_model(grid, nu=nu, nnu=args.nnu, f=f, Cg=Cg)
+    sol0 = band_geo_wave_ic(grid, rng, Kg=tuple(args.Kg), Kw=(0, 0), ag=args.ag, aw=0.0,
+                            f=f, Cg=Cg)
+    rp = RayParams(f=f, Cg=Cg, x0=float(grid.x[0]), y0=float(grid.y[0]), dx=grid.dx,
+                   dy=grid.dy, interp=args.interp, table_dtype=args.table_dtype,
+                   gather=args.gather)
+    rp = resolve_gather(rp, 2, grid.ny, grid.nx)
+    k0 = float(grid.kr[args.k0_idx])
+    l0 = float(grid.l[args.l0_idx])
+
+    def col(a, b):
+        return torch.tensor([a, b], dtype=torch.float32, device=grid.device)
+
+    packets = Packets(x=col(args.wave_x0, args.wave_x0), y=col(args.wave_y0, args.wave_y0),
+                      k=col(k0, k0), l=col(l0, l0), sign=col(1.0, -1.0))
+    return Case(model, _rsw_psih_fn(grid, f, Cg), rp, sol0, packets, f, Cg,
+                _rsw_diagnostics(rsw), "single_wave", k0=k0)
+
+
+def inject(args, case: Case, sol: torch.Tensor) -> torch.Tensor:
+    """``single-wave``: the spun-up state with the enveloped wave in place
+    of its wave part."""
+    from ..coupled.single_wave import inject_single_wave
+
+    return inject_single_wave(sol, case.model.grid, case.model.params, x0=args.wave_x0,
+                              y0=args.wave_y0, k0_idx=args.k0_idx, l0_idx=args.l0_idx,
+                              env_size=args.env_size, aw=args.aw)
+
+
+def setup_thomasyamada(args, log_fn: Callable = print):
+    """The ``thomasyamada`` subcommand's run configuration
+    (``coupled/ty_driver.TYRunConfig``): ETDRK4 unless ``--stepper`` names
+    another than IFMAB3, a startup phase at ``startup_dt_factor`` times the
+    main dt."""
+    from ..coupled.ty_driver import TYRunConfig
+
+    _reject_unported(args)
+    device = _device(args.platform)
+    stepper = args.stepper if args.stepper != "IFMAB3" else "ETDRK4"
+    dt = args.ty_dt
+    coarse = dt * args.startup_dt_factor
+    return TYRunConfig(
+        nx=args.nx, Lx=args.L, nu=args.ty_nu, nnu=args.ty_nnu, Ro=args.Ro,
+        stepper=stepper, startup_dt=coarse,
+        startup_nsteps=int(args.startup_T / coarse),
+        startup_nsubs=max(int(args.output_dt / coarse), 1),
+        dt=dt, nsteps=int(args.T / dt), nsubs=max(int(args.output_dt / dt), 1),
+        k0g_range=tuple(args.Kg), k0w_range=tuple(args.Kw),
+        at=args.at, ag=args.ag, aw=args.aw, seed=args.seed,
+        restart_file=args.restart_file, restart_frame=args.restart_frame,
+        out_dir=args.out_dir, base_filename=args.base_filename or "ty",
+        max_writes=args.max_writes, log_fn=log_fn, device=str(device),
+    )
+
+
+# the coupled subcommands' set-up functions: parsed arguments -> Case
+SETUPS = {"rsw": setup_rsw, "swqg": setup_swqg, "twolayer": setup_twolayer,
+          "single-wave": setup_single_wave}
+
+
 def schedule(args) -> tuple[int, int, int]:
     """(spinup steps, frames, flow steps per frame) of a run."""
     spinup_steps = int(args.spinup_T / args.dt)
@@ -264,13 +483,14 @@ def make_driver(args, case: Case, snapshot_writer=None, packet_writer=None,
     from ..coupled.driver import CoupledDriver
 
     adaptive = args.ray_method in ("adaptive", "adaptive7")
+    k0 = case.k0 if case.k0 is not None else _k0(args, case.f, case.Cg)
     return CoupledDriver(
         model=case.model, psih_fn=case.psih_fn, rp=case.rp, dt=args.dt,
         stepper=args.stepper, use_filter=args.use_filter,
         ray_substeps=args.ray_substeps, ray_method=args.ray_method,
         ray_opts=dict(rtol=args.ray_rtol, atol=args.ray_atol,
                       max_steps=args.ray_max_steps) if adaptive else None,
-        k_cutoff=100.0 * case.f / case.Cg, k0=_k0(args, case.f, case.Cg),
+        k_cutoff=100.0 * case.f / case.Cg, k0=k0,
         frozen_flow=args.frozen_flow,
         snapshot_writer=snapshot_writer, packet_writer=packet_writer,
         diagnostics=case.diagnostics, log_fn=log_fn,
@@ -286,14 +506,25 @@ def _writers(args, default_base):
     return snap, pkts
 
 
-def _run_coupled(args, case: Case, log_fn: Callable):
+def start_clock(case: Case, device):
+    """The run's first clock: ``case.t0`` (an IC file's) or 0."""
+    from ..core.steppers import Clock
+
+    if not case.t0:
+        return None
+    return Clock(torch.tensor(case.t0, dtype=torch.float32, device=device), 0)
+
+
+def _run_coupled(args, case: Case, log_fn: Callable, after_spinup: Callable | None = None):
     snap_w, pkt_w = _writers(args, case.base)
     drv = make_driver(args, case, snap_w, pkt_w, log_fn)
-    drv.init(case.sol0, case.packets)
+    drv.init(case.sol0, case.packets, clock=start_clock(case, case.sol0.device))
     if args.restore:
         drv.restore(args.restore)
     spinup_steps, frames, steps_per_frame = schedule(args)
     drv.spinup(spinup_steps)
+    if after_spinup is not None:
+        drv.sim = drv.sim._replace(sol=after_spinup(drv.sim.sol))
     drv.run(frames, steps_per_frame)
     drv.save_diagnostics(os.path.join(args.out_dir, "diagnostics.h5"))
     if args.checkpoint:
@@ -304,13 +535,90 @@ def _run_coupled(args, case: Case, log_fn: Callable):
 
 
 def cmd_rsw(args, log_fn: Callable = print):
-    """RSW turbulence + packets."""
+    """RSW turbulence (any ``--model`` variant) + packets."""
     return _run_coupled(args, setup_rsw(args), log_fn)
 
 
 def cmd_swqg(args, log_fn: Callable = print):
     """SWQG turbulence + packets."""
     return _run_coupled(args, setup_swqg(args), log_fn)
+
+
+def cmd_twolayer(args, log_fn: Callable = print):
+    """Two-layer (or n-layer) QG turbulence + packets."""
+    return _run_coupled(args, setup_twolayer(args, log_fn), log_fn)
+
+
+def cmd_single_wave(args, log_fn: Callable = print):
+    """Spin up RSW turbulence, replace the wave part of the state with one
+    enveloped plane wave, and evolve it with the two packets."""
+    case = setup_single_wave(args)
+    return _run_coupled(args, case, log_fn, after_spinup=partial(inject, args, case))
+
+
+def cmd_thomasyamada(args, log_fn: Callable = print):
+    """Two-phase Thomas-Yamada run -> (sol, clock, diagnostics)."""
+    from ..core.grid import make_grid
+    from ..coupled.ty_driver import run_thomasyamada
+    from ..models import thomasyamada
+
+    sol, clock, diags = run_thomasyamada(setup_thomasyamada(args, log_fn))
+    grid = make_grid(args.nx, Lx=args.L, device=sol.device)
+    ke, pe = thomasyamada.baroclinic_energy(sol, grid)
+    log_fn(f"done: t={float(clock.t):.3f} baroclinic KE={float(ke):.4g} "
+           f"PE={float(pe):.4g} wave KE={diags['wave_ke'][-1]:.4g} "
+           f"geo KE={diags['geo_ke'][-1]:.4g}")
+    return sol, clock, diags
+
+
+def cmd_twolayer_simulation(args, log_fn: Callable = print):
+    """Two-layer spin-up writing an initial-condition file that
+    ``twolayer --ic-file`` reads -> its path."""
+    import h5py
+
+    from ..core.steppers import zero_clock
+    from ..coupled.initial_conditions import random_band_psih
+    from ..io.jld2_fixture import write_twolayer_ic
+    from ..models import twolayerqg
+    from ..models.base import build_stepper, run as run_steps
+
+    grid, dt, nu, rng = _setup(args)
+    model = twolayerqg.make_model(grid, U=args.U, mu=args.mu, nu=nu, nnu=args.nnu,
+                                  f0=args.f, Cg=args.cg, drho_rho0=args.drho_rho0)
+    psih0 = torch.stack([random_band_psih(grid, rng, kband=tuple(args.Kg), amp=args.ag)
+                         for _ in range(2)])
+    sol = twolayerqg.pv_from_streamfunction(psih0, grid, model.params)
+    stepper = ("FilteredAB3" if args.stepper == "IFMAB3" and args.freely_evolving
+               else args.stepper)
+    init_fn, step_fn = build_stepper(model, stepper, dt, use_filter=args.use_filter)
+    state = init_fn(sol)
+    clock = zero_clock(device=grid.device)
+    nsteps = int(args.T / dt)
+    chunk = max(nsteps // 10, 1)
+    done = 0
+    while done < nsteps:
+        k = min(chunk, nsteps - done)
+        sol, clock, state = run_steps(step_fn, sol, clock, state, k)
+        done += k
+        ke = twolayerqg.kinetic_energy(sol, grid, model.params)
+        log_fn(f"t={float(clock.t):8.2f} KE=({float(ke[0]):.4g}, {float(ke[1]):.4g})")
+    psih = twolayerqg.streamfunction_from_pv(sol, grid, model.params).cpu().numpy()
+    os.makedirs(args.out_dir, exist_ok=True)
+    path = os.path.join(args.out_dir,
+                        f"initial_condition_{grid.nx}x{grid.ny}_U={args.U:.2f}.h5")
+    # the reference's layout (snapshots/ψh, a params struct, clock/dt) with
+    # the run's own configuration: equal depths, f-plane, buoyancies whose
+    # contrast (b1 - b2)/b1 is drho/rho0
+    write_twolayer_ic(path, psih, dt=dt, t=float(clock.t), step=clock.step, f0=args.f,
+                      beta=0.0, b=(1.0, 1.0 - args.drho_rho0), H=(0.5, 0.5),
+                      U=(args.U, -args.U), mu=args.mu)
+    with h5py.File(path, "a") as f:
+        f["ic/psih"] = psih
+        f["ic/qh"] = sol.cpu().numpy()
+        for name, val in (("Cg", args.cg), ("nx", grid.nx), ("Lx", grid.Lx)):
+            f[f"params_extra/{name}"] = val
+    log_fn(f"wrote {path}")
+    return path
 
 
 def cmd_analyze(args, log_fn: Callable = print):
@@ -347,8 +655,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--f-over-cg", type=float, default=3.0)
     p.add_argument("--model", default="rsw",
                    choices=["rsw", "linborg", "modified", "quadheight"],
-                   help="shallow-water variant; only 'rsw' is ported "
-                        "(the others: ROADMAP queue 1, item 8)")
+                   help="shallow-water variant")
     p.add_argument("--ic", default="band", choices=["band", "front"])
     p.add_argument("--Kg", type=float, nargs=2, default=(10, 13))
     p.add_argument("--Kw", type=float, nargs=2, default=(0, 5))
@@ -366,6 +673,80 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ag", type=float, default=0.5)
     p.set_defaults(fn=cmd_swqg)
 
+    p = sub.add_parser("twolayer", help="TwoLayerQG turbulence + packets")
+    _add_common(p)
+    _add_packets(p)
+    p.add_argument("--cg", type=float, default=1.0)
+    p.add_argument("--f", type=float, default=3.0)
+    p.add_argument("--U", type=float, default=0.2)
+    p.add_argument("--mu", type=float, default=0.5)
+    p.add_argument("--drho-rho0", type=float, default=0.2)
+    p.add_argument("--Kg", type=float, nargs=2, default=(2, 6))
+    p.add_argument("--ag", type=float, default=0.01)
+    p.add_argument("--baroclinic", action="store_true",
+                   help="advect packets with the baroclinic streamfunction")
+    p.add_argument("--nlayers", type=int, default=2,
+                   help=">2 switches to the n-layer QG model (equal depths, shear "
+                        "spread +U..-U, F/2 per interface); packets ride the "
+                        "depth-weighted mean flow")
+    p.add_argument("--ic-file", default=None,
+                   help="two-layer IC file (snapshots/ψh + params + clock/dt, as "
+                        "twolayer-simulation writes it)")
+    p.set_defaults(fn=cmd_twolayer)
+
+    p = sub.add_parser("thomasyamada", help="two-phase Thomas-Yamada run")
+    _add_common(p)
+    p.add_argument("--Ro", type=float, default=0.2)
+    p.add_argument("--ty-nu", type=float, default=3.5e-25)
+    p.add_argument("--ty-nnu", type=int, default=8)
+    p.add_argument("--ty-dt", type=float, default=1e-3,
+                   help="fine (main-phase) time step")
+    p.add_argument("--startup-dt-factor", type=float, default=5.0,
+                   help="coarse startup dt = factor * dt")
+    p.add_argument("--startup-T", type=float, default=1.0,
+                   help="model time integrated in the coarse startup phase")
+    p.add_argument("--Kg", type=float, nargs=2, default=(2, 6),
+                   help="geostrophic IC band k0g_range")
+    p.add_argument("--Kw", type=float, nargs=2, default=(0, 4),
+                   help="wave IC band k0w_range")
+    p.add_argument("--at", type=float, default=0.1,
+                   help="barotropic streamfunction amplitude")
+    p.add_argument("--ag", type=float, default=0.1)
+    p.add_argument("--aw", type=float, default=0.05)
+    p.add_argument("--restart-file", default=None,
+                   help="resume from a finished run's snapshot base path")
+    p.add_argument("--restart-frame", type=int, default=None)
+    p.set_defaults(fn=cmd_thomasyamada)
+
+    p = sub.add_parser("twolayer-simulation", help="spin-up writing an IC file")
+    _add_common(p)
+    p.add_argument("--cg", type=float, default=1.0)
+    p.add_argument("--f", type=float, default=3.0)
+    p.add_argument("--U", type=float, default=0.2)
+    p.add_argument("--mu", type=float, default=0.5)
+    p.add_argument("--drho-rho0", type=float, default=0.2)
+    p.add_argument("--Kg", type=float, nargs=2, default=(2, 6))
+    p.add_argument("--ag", type=float, default=0.01)
+    p.add_argument("--freely-evolving", action="store_true",
+                   help="unforced/undamped variant: FilteredAB3 in place of IFMAB3")
+    p.set_defaults(fn=cmd_twolayer_simulation)
+
+    p = sub.add_parser("single-wave",
+                       help="single wave packet in an envelope + two packets")
+    _add_common(p)
+    _add_packets(p)
+    p.add_argument("--cg", type=float, default=1.0)
+    p.add_argument("--f-over-cg", type=float, default=3.0)
+    p.add_argument("--Kg", type=float, nargs=2, default=(10, 13))
+    p.add_argument("--ag", type=float, default=0.5)
+    p.add_argument("--aw", type=float, default=0.1)
+    p.add_argument("--wave-x0", type=float, default=0.0)
+    p.add_argument("--wave-y0", type=float, default=0.0)
+    p.add_argument("--k0-idx", type=int, default=10)
+    p.add_argument("--l0-idx", type=int, default=0)
+    p.add_argument("--env-size", type=float, default=0.5)
+    p.set_defaults(fn=cmd_single_wave)
+
     p = sub.add_parser("analyze", help="offline analysis suite over run dirs")
     p.add_argument("run_dir", nargs="+")
     p.add_argument("--base", default="rsw")
@@ -381,8 +762,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None, log_fn: Callable = print):
     """Parse ``argv`` and run its subcommand; returns the coupled run's
-    ``CoupledDriver`` or the analysis report(s). Every line the run prints
-    goes to ``log_fn``."""
+    ``CoupledDriver``, the analysis report(s), ``thomasyamada``'s (sol,
+    clock, diagnostics) or ``twolayer-simulation``'s file. Every line the
+    run prints goes to ``log_fn``."""
     ap = build_parser()
     # an unported subcommand takes the JAX command line's arguments unread
     args, extra = ap.parse_known_args(argv)

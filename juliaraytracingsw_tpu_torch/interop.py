@@ -1,7 +1,8 @@
 """Carry a coupled simulation state across as numpy arrays.
 
 The keys are the reference ``SimState``'s fields: ``sol``, ``clock.t``,
-``clock.step``, ``stepper_state.N1``, ``stepper_state.N2``, ``packets.x``,
+``clock.step``, ``stepper_state.N1``, ``stepper_state.N2`` (the AB3
+steppers' history; the one-step steppers keep none), ``packets.x``,
 ``packets.y``, ``packets.k``, ``packets.l``, ``packets.sign`` and
 ``fields``. ``sim_state_to_numpy`` reads any object with that structure
 whose leaves ``np.asarray`` understands (so also the JAX package's state,
@@ -15,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.steppers import AB3State, Clock
+from .core.steppers import AB3State, Clock, EmptyState
 from .coupled.driver import SimState
 from .rays.packets import Packets
 
@@ -39,17 +40,18 @@ def sim_state_to_numpy(sim) -> dict:
         "sol": _np(sim.sol),
         "clock.t": _np(sim.clock.t),
         "clock.step": _np(sim.clock.step),
-        "stepper_state.N1": _np(sim.stepper_state.N1),
-        "stepper_state.N2": _np(sim.stepper_state.N2),
         "fields": _np(sim.fields),
     }
+    for name in getattr(sim.stepper_state, "_fields", ()):
+        d[f"stepper_state.{name}"] = _np(getattr(sim.stepper_state, name))
     for name in _PACKET_FIELDS:
         d[f"packets.{name}"] = _np(getattr(sim.packets, name))
     return d
 
 
 def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> SimState:
-    """Build this package's SimState (IF-AB3 stepper state) on ``device``."""
+    """Build this package's SimState on ``device``, with an AB3 history
+    where ``d`` holds one and an empty stepper state otherwise."""
 
     def t(key, single, double):
         a = np.asarray(d[key])
@@ -65,7 +67,8 @@ def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> Sim
     return SimState(
         sol=c("sol"),
         clock=Clock(r("clock.t").reshape(()), int(d["clock.step"])),
-        stepper_state=AB3State(c("stepper_state.N1"), c("stepper_state.N2")),
+        stepper_state=(AB3State(c("stepper_state.N1"), c("stepper_state.N2"))
+                       if "stepper_state.N1" in d else EmptyState()),
         packets=Packets(*(r(f"packets.{n}") for n in _PACKET_FIELDS)),
         fields=r("fields"),
     )

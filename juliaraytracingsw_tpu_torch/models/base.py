@@ -32,12 +32,21 @@ class Model:
     extras: dict = field(default_factory=dict)
 
 
-# the reference's ETDAB3 is the same scheme as IFMAB3; the other steppers
-# of the JAX registry are not ported yet (ROADMAP queue 1, item 7)
+# the reference drivers' vocabulary; its ETDAB3 is the same scheme as IFMAB3
 STEPPERS = {
     "IFMAB3": _steppers.make_ifab3,
     "ETDAB3": _steppers.make_ifab3,
+    "IFRK4": _steppers.make_ifrk4,
+    "ETDRK4": _steppers.make_etdrk4,
+    "FilteredETDRK4": _steppers.make_etdrk4,
+    "AB3": _steppers.make_filtered_ab3,
+    "FilteredAB3": _steppers.make_filtered_ab3,
+    "RK4": _steppers.make_filtered_rk4,
+    "FilteredRK4": _steppers.make_filtered_rk4,
 }
+
+# these names filter whatever ``use_filter`` says
+_ALWAYS_FILTERED = {"FilteredAB3", "FilteredRK4", "FilteredETDRK4"}
 
 
 def build_stepper(
@@ -54,7 +63,9 @@ def build_stepper(
         raise ValueError(
             f"unknown stepper {stepper!r}; available: {sorted(STEPPERS)}"
         ) from None
-    filt = make_filter(model.grid, **(filter_kwargs or {})) if use_filter else None
+    filt = None
+    if use_filter or stepper in _ALWAYS_FILTERED:
+        filt = make_filter(model.grid, **(filter_kwargs or {}))
     return factory(model.L, model.calcN, dt, filt)
 
 

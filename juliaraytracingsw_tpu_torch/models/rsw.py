@@ -68,16 +68,24 @@ def build_L(grid: Grid, params: RSWParams) -> torch.Tensor:
     return torch.as_tensor(L.astype(np.complex64), device=grid.device)
 
 
-def _advection_N(solh: torch.Tensor, grid: Grid) -> torch.Tensor:
+def _advection_N(solh: torch.Tensor, grid: Grid, rotational_only: bool = False) -> torch.Tensor:
     """N = [-(u u_x + v u_y), -(u v_x + v v_y), -div(eta u)] spectrally,
-    with the 2/3 truncation on both transforms."""
+    with the 2/3 truncation on both transforms. With ``rotational_only``
+    the advecting velocity of the momentum equations is the rotational
+    (divergence-free) part of (u, v) (the Linborg variant)."""
     uh, vh, etah = solh[0], solh[1], solh[2]
     ik, il = grid.ik, grid.il
 
-    stack = torch.stack([uh, vh, etah, ik * uh, il * uh, ik * vh, il * vh])
-    u, v, eta, ux, uy, vx, vy = irfft2_dealiased(stack, grid).unbind(0)
+    fields = [uh, vh, etah, ik * uh, il * uh, ik * vh, il * vh]
+    if rotational_only:
+        # zeta = v_x - u_y; psi_rot = -zeta/K^2; (ur, vr) = (-psi_y, psi_x)
+        psirh = -(ik * vh - il * uh) * grid.invKrsq
+        fields += [-il * psirh, ik * psirh]
+    phys = irfft2_dealiased(torch.stack(fields), grid)
+    u, v, eta, ux, uy, vx, vy = phys[:7].unbind(0)
+    ua, va = (phys[7], phys[8]) if rotational_only else (u, v)
 
-    prods = torch.stack([u * ux + v * uy, u * vx + v * vy, eta * u, eta * v])
+    prods = torch.stack([ua * ux + va * uy, ua * vx + va * vy, eta * u, eta * v])
     prodh = rfft2_dealiased(prods, grid)
     Nu = -prodh[0]
     Nv = -prodh[1]

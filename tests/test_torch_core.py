@@ -219,6 +219,8 @@ def test_port_never_imports_jax():
                                    "rays.packets.lattice_packets",
                                    "interop.sim_state_from_numpy",
                                    "analysis.suite.analyze_run",
+                                   "coupled.ty_driver.ty_restart_solution",
+                                   "coupled.ty_driver.TYRunConfig",
                                    "experiments.__main__.build_parser"])
 def test_entry_points_default_to_the_card(entry):
     """A caller who names no device runs on the card; the CPU is asked for
@@ -226,7 +228,8 @@ def test_entry_points_default_to_the_card(entry):
     module, name = entry.rsplit(".", 1)
     fn = getattr(importlib.import_module(f"juliaraytracingsw_tpu_torch.{module}"), name)
     if name == "build_parser":
-        for argv in (["rsw"], ["swqg"], ["analyze", "run"]):
+        for argv in (["rsw"], ["swqg"], ["analyze", "run"], ["twolayer"], ["thomasyamada"],
+                     ["twolayer-simulation"], ["single-wave"]):
             assert fn().parse_args(argv).platform == "cuda"
         return
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -547,3 +547,55 @@ def test_cli_gpu_matches_cpu(tmp_path, cuda_device):
         np.testing.assert_allclose(gd[key], cd[key], rtol=1e-5, err_msg=key)
     for key in cp:
         np.testing.assert_allclose(gp[key], cp[key], rtol=0, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [[], ["--baroclinic"], ["--nlayers", "3"]],
+                         ids=["barotropic", "baroclinic", "3-layers"])
+def test_twolayer_frame_gpu_matches_cpu(extra, cuda_device):
+    """One coupled two-layer (or 3-layer) frame at 64^2 x 4,096 packets
+    through the command line's set-up, on the card (the table kernel, 5
+    launches) against the CPU: ``sol`` within 1e-5 of its largest mode,
+    packets within 1e-4, as ``chip_smoke.py`` phase 3 holds a frame."""
+    from chip_smoke import coupled_argv, drive_cli
+
+    before = ray_step.table_launches["bilinear"]
+    sims = [drive_cli(coupled_argv("twolayer", 64, 64, 1, *extra, platform=p),
+                      lambda line: None)[0].sim for p in ("cuda", "cpu")]
+    assert ray_step.table_launches["bilinear"] - before == 5
+    gpu, cpu = sims
+    assert float((gpu.sol.cpu() - cpu.sol).abs().max() / cpu.sol.abs().max()) < 1e-5
+    for name in ("x", "y", "k", "l"):
+        torch.testing.assert_close(getattr(gpu.packets, name).cpu(), getattr(cpu.packets, name),
+                                   rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper", ["IFRK4", "AB3", "FilteredAB3", "RK4", "FilteredRK4",
+                                     "ETDRK4", "FilteredETDRK4"])
+def test_new_steppers_gpu_match_cpu(stepper, cuda_device):
+    """10 steps of each stepper the IF-AB3 slice lacked, on the card
+    against the CPU: RSW at 64^2 (a block L), Thomas-Yamada for the ETDRK4
+    names (a diagonal L); ``sol`` within 1e-5 of its largest mode."""
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import (
+        band_geo_wave_ic, ty_initial_condition)
+    from juliaraytracingsw_tpu_torch.models import rsw, thomasyamada
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper, run
+
+    out = []
+    for device in (cuda_device, "cpu"):
+        grid = make_grid(64, device=device)
+        rng = np.random.default_rng(5)
+        if "ETDRK4" in stepper:
+            model = thomasyamada.make_model(grid)
+            sol = ty_initial_condition(grid, rng, (2, 6), (0, 4), 0.1, 0.1, 0.05)
+        else:
+            model = rsw.make_model(grid, nu=1e-12, nnu=4, f=3.0, Cg=1.0)
+            sol = band_geo_wave_ic(grid, rng, ag=0.5, aw=0.1, f=3.0, Cg=1.0)
+        init, step = build_stepper(model, stepper, 1e-3)
+        sol, clock, _ = run(step, sol, zero_clock(device=device), init(sol), 10)
+        assert sol.device.type == torch.device(device).type and clock.step == 10
+        out.append(sol.cpu())
+    assert float((out[0] - out[1]).abs().max() / out[1].abs().max()) < 1e-5

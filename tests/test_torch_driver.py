@@ -266,6 +266,23 @@ def test_interop_carries_jax_state_across():
     _assert_states_match(dt_.sim, dj.sim)
 
 
+def test_interop_carries_a_one_step_stepper_state():
+    """A coupled state stepped by IFRK4 (no AB3 history) crosses from the
+    JAX driver to the port's with an empty stepper state, and the next
+    frame agrees."""
+    dj, dt_ = _drivers(stepper="IFRK4")
+    dj.run(n_frames=1, flow_steps_per_frame=3)
+    d = interop.sim_state_to_numpy(dj.sim)
+    assert not any(key.startswith("stepper_state") for key in d)
+    dt_.sim = interop.sim_state_from_numpy(d, device="cpu")
+    assert type(dt_.sim.stepper_state).__name__ == "EmptyState"
+    for key, val in interop.sim_state_to_numpy(dt_.sim).items():
+        np.testing.assert_array_equal(val, d[key], err_msg=key)
+    for drv in (dj, dt_):
+        drv.run(n_frames=1, flow_steps_per_frame=3)
+    _assert_states_match(dt_.sim, dj.sim)
+
+
 @pytest.mark.parametrize("option,item", [
     (dict(birth_death=True), "item 5"),
 ])

@@ -1,7 +1,9 @@
 """The port's rolling HDF5 outputs and checkpoints on the CPU, against the
 JAX package: the writer/reader round trip with rolling, ``save_problem``'s
 header, checkpoints that restore in either package and the runs that go on
-from them, bit-exact resume, and the refusal of a mismatched checkpoint.
+from them, bit-exact resume, and the refusal of a mismatched checkpoint;
+the JLD2-shaped files (``io/jld2``, ``io/jld2_fixture``) written by either
+package and read by both, and ``utils/twolayer_helpers``.
 
 Runs after a restore are held to ``test_torch_driver._assert_states_match``
 (the flow state to 2e-6 of its largest mode, packets to 1e-5 with float32
@@ -15,18 +17,28 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from juliaraytracingsw_tpu.core.grid import make_grid as jmake_grid  # noqa: E402
 from juliaraytracingsw_tpu.io import checkpoint as jck  # noqa: E402
+from juliaraytracingsw_tpu.io import jld2 as jjld2  # noqa: E402
+from juliaraytracingsw_tpu.io import jld2_fixture as jfix  # noqa: E402
 from juliaraytracingsw_tpu.io import output as jout  # noqa: E402
 from juliaraytracingsw_tpu.models import rsw as jrsw  # noqa: E402
 from juliaraytracingsw_tpu.models import swqg as jswqg  # noqa: E402
+from juliaraytracingsw_tpu.models import twolayerqg as j2l  # noqa: E402
+from juliaraytracingsw_tpu.utils import twolayer_helpers as jh  # noqa: E402
 from juliaraytracingsw_tpu_torch.core.grid import make_grid as tmake_grid  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled import driver as tdrv  # noqa: E402
 from juliaraytracingsw_tpu_torch.io import checkpoint as tck  # noqa: E402
+from juliaraytracingsw_tpu_torch.io import jld2 as tjld2  # noqa: E402
+from juliaraytracingsw_tpu_torch.io import jld2_fixture as tfix  # noqa: E402
 from juliaraytracingsw_tpu_torch.io import output as tout  # noqa: E402
 from juliaraytracingsw_tpu_torch.models import rsw as trsw  # noqa: E402
 from juliaraytracingsw_tpu_torch.models import swqg as tswqg  # noqa: E402
+from juliaraytracingsw_tpu_torch.models import twolayerqg as t2l  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import packets as tpk  # noqa: E402
+from juliaraytracingsw_tpu_torch.utils import twolayer_helpers as th  # noqa: E402
 from test_torch_driver import DT, _assert_states_match, _drivers  # noqa: E402
 
 JAX_TREEPATHS = [".sol", ".clock.t", ".clock.step", ".stepper_state.N1",
@@ -210,3 +222,75 @@ def test_restore_needs_init():
                              log_fn=lambda s: None)
     with pytest.raises(RuntimeError, match="init"):
         drv.restore("unused.npz")
+
+
+def _twolayer_fixture(writer, path, rng):
+    psih = (rng.standard_normal((2, 16, 9)) + 1j * rng.standard_normal((2, 16, 9))).astype(
+        np.complex64)
+    writer.write_twolayer_ic(path, psih, dt=2.5e-3, t=1.25, step=7, f0=3.0, b=(1.0, 0.8),
+                             U=(0.2, -0.2), mu=0.05)
+    return psih
+
+
+@pytest.mark.parametrize("direction", ["jax-writes", "port-writes"])
+def test_jld2_twolayer_ic_across_packages(tmp_path, direction):
+    """The reference's two-layer IC layout written by one package reads
+    the same in both: psih, t, the params struct (unicode field names),
+    dt, the key list."""
+    path = str(tmp_path / "ic.h5")
+    psih = _twolayer_fixture(jfix if direction == "jax-writes" else tfix, path,
+                             np.random.default_rng(4))
+    got, want = tjld2.load_twolayer_ic(path), jjld2.load_twolayer_ic(path)
+    np.testing.assert_array_equal(got[0], psih)
+    np.testing.assert_array_equal(want[0], psih)
+    assert got[1] == want[1] == 1.25 and got[3] == want[3] == 2.5e-3
+    assert sorted(got[2]) == sorted(want[2]) == sorted(["f₀", "β", "b", "H", "U", "μ"])
+    for key in want[2]:
+        np.testing.assert_array_equal(got[2][key], want[2][key])
+    assert tjld2.list_keys(path) == jjld2.list_keys(path)
+    assert tjld2.load_scalar(path, "clock/dt") == 2.5e-3
+    with h5py.File(path, "r") as f:
+        assert f["_types/00000001"].attrs["julia_type"] == "Core.Complex{Core.Float32}"
+
+
+def test_jld2_fixture_across_packages(tmp_path):
+    """``write_jld2_fixture`` of either package: Julia-ordered (reversed)
+    real and complex arrays and scalars, the same file read back by both
+    readers."""
+
+    rng = np.random.default_rng(6)
+    data = {"a/real": rng.standard_normal((3, 5)),
+            "a/complex": (rng.standard_normal((4, 3)) + 1j * rng.standard_normal((4, 3))),
+            "scalar": 2.5}
+    for name, mod in (("j.h5", jfix), ("t.h5", tfix)):
+        mod.write_jld2_fixture(str(tmp_path / name), data)
+    for key, want in data.items():
+        for name in ("j.h5", "t.h5"):
+            path = str(tmp_path / name)
+            got = tjld2.load_array(path, key)
+            np.testing.assert_array_equal(got, jjld2.load_array(path, key))
+            np.testing.assert_array_equal(got, np.asarray(want).T if np.ndim(want) > 1
+                                          else want)
+    assert _datasets(str(tmp_path / "j.h5")).keys() == _datasets(str(tmp_path / "t.h5")).keys()
+
+
+def test_twolayer_helpers_match_jax(tmp_path):
+    """``load_two_layer_state`` (an IC file's psih to the PV state) and the
+    Thompson-Young scalings against the JAX package's."""
+    path = str(tmp_path / "ic.h5")
+    psih = _twolayer_fixture(jfix, path, np.random.default_rng(5))
+    with h5py.File(path, "a") as f:
+        f["ic/psih"] = psih
+    jg, tg = jmake_grid(16), tmake_grid(16, device="cpu")
+    mj, mt = j2l.make_model(jg), t2l.make_model(tg)
+    got = th.load_two_layer_state(path, tg, mt.params)
+    want = j2l.pv_from_streamfunction(jnp.asarray(psih), jg, mj.params)
+    assert got.device.type == "cpu" and got.dtype == torch.complex64
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=0)
+    for U, lam, mu in ((0.2, 0.3, 0.05), (1.0, 1.0, 0.5)):
+        assert th.thompson_young_scales(U, lam, mu) == jh.thompson_young_scales(U, lam, mu)
+        assert th.mu_from_target_scale(8.0, U, lam) == jh.mu_from_target_scale(8.0, U, lam)
+    lines_t, lines_j = [], []
+    th.display_energetics(0.1, 0.2, 0.2, 0.3, 0.05, log=lines_t.append)
+    jh.display_energetics(0.1, 0.2, 0.2, 0.3, 0.05, log=lines_j.append)
+    assert lines_t == lines_j
