@@ -72,10 +72,23 @@ without them, and on any failed check. Phases, each printing its lines:
    ``ty_driver._phase``, the host seconds of its contour coefficients;
    7f. ``rsw --model linborg|modified|quadheight`` at the hero's size, one
    frame each; 7g. each new path on the card against the CPU, held as
-   phase 3 holds a frame.
+   phase 3 holds a frame;
+8. Weibull birth/death and the other new paths: 8a. the birth/death
+   kernel (``csrc/birth_death.cu``) against its twin at 262,144 and
+   1,048,576 packets over 3 chained calls, bit-equal but lifetimes (1
+   ulp), the twin on the card bit-equal to the twin on the CPU, each timed
+   beside its byte bound; 8b. hero_bd (``bench.py:202``): 512^2 RSW,
+   262,144 packets, bilinear bf16 tables, RK4, Weibull(1.5, 10) seeded 0,
+   4 frames of 5 steps, exactly 20 table and 20 birth/death launches,
+   births within 5 sigma of N T E[1/L]; 8c. its JAX-format checkpoint
+   restored on the CPU, the next frame's population bit-equal; 8d.
+   ``steady-raytracing`` through the command line at 512^2 x 1,048,576
+   ('auto' -> patch, 2 frames of 20 substeps, exactly 40 table launches);
+   8e. a birth/death frame, ``nufft_raytrace``, ``raytrace1d`` and forced
+   RSW steps on the card against the CPU, and ``benchmark_integrators``.
 
 The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
-5c, 6a and each coupled case of phase 7) and read after it; the heroes must launch only the table forms. The
+5c, 6a, each coupled case of phase 7, 8b and 8d) and read after it; the heroes must launch only the table forms. The
 first cut runs on no main path: its launches are phase 2's. Every time
 printed carries the card's name and power limit.
 
@@ -415,24 +428,31 @@ def error_row(what: str, n: int, out, ref, hold: bool) -> None:
 
 
 def coupled_frame(device, nx: int = 128, sqrtp: int = 128, flow_steps: int = 5,
-                  ray_method: str = "rk4", ray_opts: dict | None = None):
+                  ray_method: str = "rk4", ray_opts: dict | None = None,
+                  birth_death: dict | None = None):
     """One coupled frame of the hero's configuration at nx^2 with f32
-    tables -> (start packets, end state, the frame's adaptive infos)."""
+    tables (with ``birth_death`` = dict(k_shape=, lam=), the ensemble
+    resampled from ``init_birth_death(prng_key(0))``) -> (start packets,
+    end state, the frame's adaptive infos)."""
     from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
     from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
     from juliaraytracingsw_tpu_torch.models.base import build_stepper
     from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.prng import prng_key
     from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+    from juliaraytracingsw_tpu_torch.rays.resample import init_birth_death
 
     grid, model, sol0, rp, psih_fn = make_case(nx, "bilinear", "float32", device)
     init, step = build_stepper(model, "IFMAB3", DT)
     infos = []
     frame = make_coupled_frame(model, step, psih_fn, rp, flow_steps, k_cutoff=K_CUTOFF,
                                k0=K0, ray_method=ray_method, ray_opts=ray_opts,
-                               ray_info_fn=infos.append)
+                               ray_info_fn=infos.append, birth_death=birth_death)
     packets = lattice_packets(sqrtp, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
     fields = fields_from_psih(psih_fn(sol0), grid, rp.interp)
-    end = frame(SimState(sol0, zero_clock(device=device), init(sol0), packets, fields))
+    bd = (init_birth_death(prng_key(0, device=device), packets.n, **birth_death)
+          if birth_death else None)
+    end = frame(SimState(sol0, zero_clock(device=device), init(sol0), packets, fields, bd))
     return packets, end, infos
 
 
@@ -479,15 +499,17 @@ def phase_gpu_vs_cpu(device, ray_method: str = "rk4", ray_opts: dict | None = No
 
 def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
          sqrtp: int = 1024, flow_steps: int = 5, ray_method: str = "rk4",
-         ray_opts: dict | None = None) -> dict:
-    """The hero row ``interp`` through CoupledDriver; returns its numbers."""
+         ray_opts: dict | None = None, driver_kw: dict | None = None,
+         tag: str | None = None, nx: int = 512) -> tuple[dict, object]:
+    """The hero row ``interp`` through CoupledDriver (``driver_kw``: more
+    of its options) -> (its numbers, the driver)."""
     from juliaraytracingsw_tpu_torch.coupled.driver import CoupledDriver
     from juliaraytracingsw_tpu_torch.models import rsw
     from juliaraytracingsw_tpu_torch.ops import ray_step
     from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
 
-    grid, model, sol0, rp, psih_fn = make_case(512, interp, "bfloat16", device)
-    tag = interp if ray_method == "rk4" else f"{interp}, {ray_method}"
+    grid, model, sol0, rp, psih_fn = make_case(nx, interp, "bfloat16", device)
+    tag = tag or (interp if ray_method == "rk4" else f"{interp}, {ray_method}")
     marks = []
 
     def log_fn(line):
@@ -497,7 +519,7 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
 
     drv = CoupledDriver(model=model, psih_fn=psih_fn, rp=rp, dt=DT, stepper="IFMAB3",
                         ray_substeps=1, ray_method=ray_method, ray_opts=ray_opts,
-                        k_cutoff=K_CUTOFF, k0=K0, log_fn=log_fn)
+                        k_cutoff=K_CUTOFF, k0=K0, log_fn=log_fn, **(driver_kw or {}))
     packets = lattice_packets(sqrtp, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
     drv.init(sol0, packets)
     e0 = float(rsw.total_energy(drv.sim.sol, grid, model.params))
@@ -546,12 +568,12 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
         kernel = (f"table attempt kernel launches {res['attempt_launches']} for "
                   f"{res['attempts']} attempts, RK4 table kernel launches {res['launches']}")
     kernel += f", first-cut (rows_T) kernel launches {res['first_cut_launches']}"
-    print(f"hero {tag} (512^2 RSW + {res['n']} packets, bf16 tables): {flow}"
+    print(f"hero {tag} ({nx}^2 RSW + {res['n']} packets, bf16 tables): {flow}"
           f"{res['coupled_steps_per_s']:.2f} coupled steps/s, {rate} {over} "
           f"(frame ms {', '.join(f'{m:.2f}' for m in frame_ms)}); {kernel}; "
           f"max |k| {res['kmax']:.3f} (cutoff {K_CUTOFF}); energy change "
           f"{res['dE']:.3e}; finite {finite} [{card}]")
-    return res
+    return res, drv
 
 
 def launch_counts() -> dict:
@@ -1441,6 +1463,329 @@ def phase_models(card: str, device) -> dict:
     return launches
 
 
+# phase 8: Weibull birth/death (the hero_bd row, bench.py:202), steady
+# raytracing through the command line, and the other new paths GPU vs CPU
+BD_SOURCE = "juliaraytracingsw_tpu_torch/csrc/birth_death.cu"
+BD_REPLACES = "juliaraytracingsw_tpu/rays/resample.py:66"
+BD_CONSTS = dict(k_shape=1.5, lam=10.0)
+HERO_BD = dict(birth_death=True, bd_k_shape=1.5, bd_lam=10.0, bd_seed=0)
+# float32 words a packet reads (a live one x y k l sign age lifetime, a dead
+# one its age and lifetime only: the rest are drawn) and writes (all seven,
+# then a byte of dead mask)
+BD_LIVE_READS, BD_DEAD_READS, BD_WRITES = 7, 2, 7
+BD_OUTPUTS = ("x", "y", "k", "l", "sign", "age", "lifetime", "key", "births", "dead")
+# 8a: each call a dt of 4 mean-10 lifetimes' worth: a third of the ensemble dies
+BD_DT = 4.0
+
+
+def max_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in units of b's float spacing."""
+    a, b = a.cpu().double().numpy(), b.cpu().numpy()
+    return float((np.abs(a - b) / np.spacing(np.abs(b).astype(b.dtype))).max()) if b.size else 0.0
+
+
+def bd_inputs(n: int, device) -> list:
+    """The birth/death kernel's inputs at n = sqrtp^2 packets: the hero's
+    lattice and ``init_birth_death(prng_key(0), n)``."""
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.prng import prng_key
+    from juliaraytracingsw_tpu_torch.rays.resample import init_birth_death
+
+    sqrtp = int(round(np.sqrt(n)))
+    L = 2 * np.pi
+    packets = lattice_packets(sqrtp, L, L, k0=K0, k_ring=True, device=device)
+    return [*packets, *init_birth_death(prng_key(0, device=device), n, **BD_CONSTS)]
+
+
+def check_bd_outputs(what: str, out, ref, *, lifetime_ulps: float = 1.0) -> float:
+    """Every output bit-equal but lifetimes (within ``lifetime_ulps``) ->
+    their largest float difference."""
+    err = 0.0
+    for name, a, b in zip(BD_OUTPUTS, out, ref):
+        b = b.to(a.device)
+        if name == "lifetime":
+            ulps = max_ulps(a, b)
+            if ulps > lifetime_ulps:
+                raise AssertionError(f"{what}: lifetimes {ulps} ulps apart")
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs")
+        if a.is_floating_point():
+            err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def phase_birth_death_kernel(card: str, device, sizes=(1 << 18, 1 << 20)) -> dict:
+    """8a: the birth/death kernel against its twin at 262,144 and 1,048,576
+    packets over 3 chained calls (each fed the kernel's last output, so the
+    two meet the same inputs), the twin on the card against the twin on the
+    CPU; then each timed in a CUDA graph at the last call's inputs ->
+    {n: row}."""
+    from juliaraytracingsw_tpu_torch.ops import birth_death as bd
+    from juliaraytracingsw_tpu_torch.profiling._timing import bound_ms, device_ms, time_ms
+
+    L = 2 * np.pi
+    consts = dict(Lx=L, Ly=L, k0=K0, x0=-L / 2, y0=-L / 2, **BD_CONSTS)
+    rows = {}
+    for n in sizes:
+        t0 = time.perf_counter()
+        state = bd_inputs(n, device)
+        dt = torch.tensor(BD_DT, device=device)
+        err, deaths, same_life = 0.0, [], True
+        for _ in range(3):
+            out = bd.birth_death(*state, dt, **consts)
+            ref = bd.birth_death_torch(*state, dt, **consts)
+            cpu = bd.birth_death_torch(*(t.cpu() for t in state), dt.cpu(), **consts)
+            torch.cuda.synchronize()
+            err = max(err, check_bd_outputs(f"birth_death kernel vs twin, N={n}", out, ref))
+            check_bd_outputs(f"birth_death twin on the card vs the CPU, N={n}", ref, cpu,
+                             lifetime_ulps=0.0)
+            same_life = same_life and torch.equal(out[6], ref[6])
+            deaths.append(int(out[9].sum()))
+            state = list(out[:9])
+
+        def kernel():
+            return bd.birth_death(*state, dt, **consts)
+
+        def twin():
+            return bd.birth_death_torch(*state, dt, **consts)
+
+        ms, eager_ms, plain_ms = device_ms(kernel), time_ms(kernel), device_ms(twin)
+        # the timed call's own deaths set the bytes it must read
+        timed_deaths = int(kernel()[9].sum())
+        nbytes = (4 * (BD_LIVE_READS * (n - timed_deaths) + BD_DEAD_READS * timed_deaths
+                       + BD_WRITES * n) + n)
+        bound = bound_ms(nbytes)
+        rows[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                       bound_by="bytes", library_ms=None)
+        print(f"8a birth_death: N={n}, 3 chained calls of dt {BD_DT}: deaths {deaths} (the "
+              f"timed call {timed_deaths}); key, "
+              f"births, dead mask, x, y, k, l, sign, age bit-equal to the twin, lifetimes "
+              f"bit-equal {same_life} (limit 1 ulp), max |kernel - twin| {err:.3e}; the twin "
+              f"on the card bit-equal to the twin on the CPU; kernel {ms:.4f} ms ({eager_ms:.4f} "
+              f"ms eager: the wrapper's host work), twin "
+              f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 TB/s); "
+              f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return rows
+
+
+def phase_hero_bd(card: str, device, rk4_rate: float, nx: int = 512,
+                  sqrtp: int = 512) -> tuple[dict, object]:
+    """8b: hero_bd (bench.py:202) through CoupledDriver with its launches
+    counted from 0: 512^2 RSW, 262,144 lattice packets, bilinear bf16
+    tables, IF-AB3, RK4, Weibull(1.5, 10) birth/death seeded 0, 4 frames of
+    5 steps at the hero's DT; exactly 20 table and 20 birth/death launches,
+    births within 5 sigma of N T E[1/L] -> (its numbers, the driver)."""
+    import math
+
+    from juliaraytracingsw_tpu_torch.ops import birth_death, ray_step
+
+    ray_step.reset_launches()
+    birth_death.reset_launches()
+    res, drv = hero(card, device, "bilinear", spinup_steps=0, n_frames=4, sqrtp=sqrtp,
+                    driver_kw=HERO_BD, tag="hero_bd", nx=nx)
+    torch.cuda.synchronize()
+    res["bd_launches"] = birth_death.launches["birth_death"]
+    check_rows([res], ["hero_bd"])
+    n, T = drv.sim.packets.n, float(drv.sim.clock.t)
+    births = int(drv.sim.bd.births)
+    # staggered ages: a packet of lifetime L dies within T with chance T / L
+    expected = n * T * math.gamma(1.0 - 1.0 / BD_CONSTS["k_shape"]) / BD_CONSTS["lam"]
+    sigma = math.sqrt(expected)
+    print(f"8b hero_bd: {res['coupled_steps_per_s']:.2f} coupled steps/s, "
+          f"{res['coupled_steps_per_s'] / rk4_rate:.3f}x phase 4's RK4 hero (1,048,576 "
+          f"packets); table kernel launches {res['launches']}, birth_death launches "
+          f"{res['bd_launches']}; births in {drv.sim.clock.step} steps {births} (expected "
+          f"N T E[1/L] = {expected:.1f} +- 5 sigma {5 * sigma:.1f}); mean age "
+          f"{float(drv.sim.bd.age.mean()):.4f} [{card}]", flush=True)
+    if res["launches"] != 20 or res["bd_launches"] != 20:
+        raise AssertionError(f"hero_bd launched {res['launches']} table and "
+                             f"{res['bd_launches']} birth/death kernels, not 20 and 20")
+    if abs(births - expected) > 5 * sigma:
+        raise AssertionError(f"hero_bd: {births} births, expected {expected:.1f}")
+    return res, drv
+
+
+def phase_bd_checkpoint_on_cpu(card: str, gpu_drv) -> None:
+    """8c: the card's hero_bd state written as a JAX-format checkpoint,
+    restored into the same driver on the CPU; one more frame on each: every
+    birth/death leaf bit-equal (lifetimes within 1 ulp: the card's and the
+    CPU's float64 log and pow)."""
+    from juliaraytracingsw_tpu_torch.coupled.driver import CoupledDriver
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+
+    t0 = time.perf_counter()
+    grid, model, sol0, rp, psih_fn = make_case(gpu_drv.model.grid.nx, "bilinear", "bfloat16",
+                                               "cpu")
+    cpu_drv = CoupledDriver(model=model, psih_fn=psih_fn, rp=rp, dt=DT, stepper="IFMAB3",
+                            k_cutoff=K_CUTOFF, k0=K0, log_fn=lambda line: None, **HERO_BD)
+    sqrtp = int(round(gpu_drv.sim.packets.n ** 0.5))
+    cpu_drv.init(sol0, lattice_packets(sqrtp, grid.Lx, grid.Ly, k0=K0, k_ring=True,
+                                       device="cpu"))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "hero_bd.npz")
+        gpu_drv.checkpoint(path)
+        with np.load(path) as data:
+            paths = bytes(data["__treepaths__"]).decode().split("\n")
+            key_dtype = data[f"leaf_{paths.index('.bd.key')}"].dtype
+        cpu_drv.restore(path)
+    if paths[-4:] != [".bd.age", ".bd.lifetime", ".bd.key", ".bd.births"] or key_dtype != np.uint32:
+        raise AssertionError(f"hero_bd checkpoint: leaves {paths[-4:]}, key {key_dtype}")
+    for drv in (gpu_drv, cpu_drv):
+        drv.run(n_frames=1, flow_steps_per_frame=5)
+    g, c = gpu_drv.sim.bd, cpu_drv.sim.bd
+    same = {name: torch.equal(getattr(g, name).cpu(), getattr(c, name))
+            for name in ("age", "key", "births", "lifetime")}
+    ulps = max_ulps(g.lifetime, c.lifetime)
+    pk_err = max(float((getattr(gpu_drv.sim.packets, n).cpu()
+                        - getattr(cpu_drv.sim.packets, n)).abs().max()) for n in "xykl")
+    print(f"8c hero_bd checkpoint (JAX format, key uint32[2]) restored on the CPU, one more "
+          f"frame on each: bit-equal {same}, lifetimes {ulps:.1f} ulps apart; births "
+          f"{int(g.births)}; packets max abs diff {pk_err:.3e} (bf16 tables); "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    if not (same["age"] and same["key"] and same["births"] and ulps <= 1.0):
+        raise AssertionError("hero_bd: the CPU's next frame differs from the card's")
+
+
+def steady_argv(out_dir: str, platform: str = "cuda", nx: int = 512, sqrtp: int = 1024,
+                frames: int = 2, substeps: int = 20) -> list[str]:
+    """steady-raytracing at nx^2 x sqrtp^2 with 'auto' gather, bilinear bf16
+    tables and an --output-dt of ``substeps`` CFL steps a frame."""
+    dt = 0.1 / 2.0 * (2 * np.pi / nx)         # derive_dt at the default tune
+    output_dt = substeps * dt
+    return ["steady-raytracing", "--nx", str(nx), "--sqrt-npackets", str(sqrtp),
+            "--interp", "bilinear", "--table-dtype", "bfloat16", "--gather", "auto",
+            "--output-dt", repr(output_dt), "--T", repr(frames * output_dt), "--seed", "1",
+            "--out-dir", out_dir, "--platform", platform]
+
+
+def phase_steady_raytracing(card: str, platform: str = "cuda", nx: int = 512,
+                            sqrtp: int = 1024) -> dict:
+    """8d: steady-raytracing through the command line at 512^2 x 1,048,576
+    with a packet writer that drops the frames on the host, launches
+    counted from 0: 'auto' -> patch, exactly 40 table launches (2 frames of
+    20 substeps), none of birth/death; the whole call timed by CUDA
+    events."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.ops import birth_death, ray_step
+
+    with tempfile.TemporaryDirectory() as d:
+        args = cli.build_parser().parse_args(steady_argv(d, platform, nx, sqrtp))
+        lines = []
+        ray_step.reset_launches()
+        birth_death.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        packets, t = cli.steady_raytracing(args, DiscardingWriter(), log_fn=lines.append)
+        end.record()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    seconds = start.elapsed_time(end) / 1e3
+    n = packets.n
+    launches = counts["table"]["bilinear"]
+    finite = all(bool(torch.isfinite(a).all()) for a in packets)
+    print(f"8d steady-raytracing ({nx}^2, {n} packets, 2 frames of 20 substeps, --gather auto "
+          f"-> patch, packet frames copied to the host and dropped): {n * launches / seconds:.4e} "
+          f"packet-substeps/s, {2 * n / seconds:.4e} packet-frames/s over the whole call ({seconds:.3f} s: "
+          f"set-up, 2 frames, their host copies); table kernel launches {launches}, "
+          f"birth_death launches {birth_death.launches['birth_death']}; finite {finite}; "
+          f"{lines[-1]} [{card}]", flush=True)
+    if (launches != 40 or counts["first cut"] or birth_death.launches["birth_death"]
+            or any(v for k, v in counts["table"].items() if k != "bilinear")):
+        raise AssertionError(f"steady-raytracing launched {counts}, not 40 table kernels")
+    if not finite:
+        raise AssertionError("steady-raytracing: non-finite packets")
+    return dict(launches=launches, seconds=seconds)
+
+
+def rel_diff(gpu: torch.Tensor, cpu: torch.Tensor) -> float:
+    return float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+
+
+def phase_new_paths_gpu_vs_cpu(card: str, device) -> None:
+    """8e: each new path on the card against the CPU, within phase 3's
+    limits: a 128^2 x 16,384 birth/death frame (and its population, as 8c
+    holds it), nufft_raytrace at 64^2 x 4,096, raytrace1d rk4 and midpoint
+    at 4,096 rays, 5 forced RSW steps; then benchmark_integrators' times."""
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import (band_geo_wave_ic,
+                                                                        random_band_psih)
+    from juliaraytracingsw_tpu_torch.models import rsw
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper, run
+    from juliaraytracingsw_tpu_torch.rays import nufft_rays, ray1d
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import RayParams
+
+    t0 = time.perf_counter()
+    gpu_cpu = [coupled_frame(dev, birth_death=dict(k_shape=1.5, lam=0.05))[1]
+               for dev in (device, "cpu")]
+    g, c = gpu_cpu
+    sol_err = rel_diff(g.sol, c.sol)
+    pk_err = max(float((getattr(g.packets, n).cpu() - getattr(c.packets, n)).abs().max())
+                 for n in "xykl")
+    bd_same = all(torch.equal(getattr(g.bd, n).cpu(), getattr(c.bd, n))
+                  for n in ("age", "key", "births"))
+    life_ulps = max_ulps(g.bd.lifetime, c.bd.lifetime)
+    print(f"8e birth/death frame GPU vs CPU (128^2, 16384 packets, 5 steps, lam 0.05): births "
+          f"{int(g.bd.births)}; sol rel err {sol_err:.3e} (limit {FRAME_SOL_RTOL}), packet max "
+          f"abs err {pk_err:.3e} (limit {FRAME_PACKET_ATOL}); age, key, births bit-equal "
+          f"{bd_same}, lifetimes {life_ulps:.1f} ulps apart", flush=True)
+    if not (sol_err < FRAME_SOL_RTOL and pk_err < FRAME_PACKET_ATOL and bd_same
+            and life_ulps <= 1.0 and int(g.bd.births) > 0):
+        raise AssertionError("the birth/death frame differs between the card and the CPU")
+
+    outs = []
+    for dev in (device, "cpu"):
+        grid = make_grid(64, device=dev)
+        rng = np.random.default_rng(3)
+        so, sn = (nufft_rays.spectra_from_psih(
+            random_band_psih(grid, rng, kband=(2, 6), amp=0.2), grid) for _ in range(2))
+        rp = RayParams(f=F, Cg=CG, x0=float(grid.x[0]), y0=float(grid.y[0]), dx=grid.dx,
+                       dy=grid.dy)
+        packets = lattice_packets(64, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=dev)
+        outs.append(nufft_rays.nufft_raytrace(packets, so, sn, 0.0, 0.02, grid, rp,
+                                              nsubsteps=2))
+    err = max(float((getattr(outs[0], n).cpu() - getattr(outs[1], n)).abs().max())
+              for n in "xykl")
+    print(f"8e nufft_raytrace GPU vs CPU (64^2, 4096 packets, 2 RK4 substeps): packet max "
+          f"abs err {err:.3e} (limit {FRAME_PACKET_ATOL})", flush=True)
+    if not err < FRAME_PACKET_ATOL:
+        raise AssertionError("nufft_raytrace differs between the card and the CPU")
+
+    u, ux = ray1d.benchmark_field(512)
+    for method in ("rk4", "midpoint"):
+        outs = [ray1d.raytrace1d(ray1d.init_rays1d(4096, device=dev),
+                                 torch.as_tensor(u, dtype=torch.float32, device=dev),
+                                 torch.as_tensor(ux, dtype=torch.float32, device=dev),
+                                 1e-3, 200, 2 * np.pi, method) for dev in (device, "cpu")]
+        err = max(rel_diff(a, b) for a, b in zip(*outs))
+        print(f"8e raytrace1d {method} GPU vs CPU (4096 rays, 200 steps of 1e-3): max rel err "
+              f"{err:.3e} (limit {FRAME_SOL_RTOL})", flush=True)
+        if not err < FRAME_SOL_RTOL:
+            raise AssertionError(f"raytrace1d {method} differs between the card and the CPU")
+
+    outs = []
+    for dev in (device, "cpu"):
+        grid = make_grid(64, device=dev)
+        Fh = torch.as_tensor(np.random.default_rng(6).normal(size=(3, 64, 33))
+                             .astype(np.complex64) * 0.3, device=dev)
+        model = rsw.make_model(grid, nu=1e-8, nnu=4, f=F, Cg=CG,
+                               forcing=lambda sol, t, Fh=Fh: Fh * torch.cos(5.0 * t))
+        sol = band_geo_wave_ic(grid, np.random.default_rng(1), ag=0.5, aw=0.05, f=F, Cg=CG)
+        init, step = build_stepper(model, "IFMAB3", DT)
+        outs.append(run(step, sol, zero_clock(device=dev), init(sol), 5)[0])
+    err = rel_diff(*outs)
+    print(f"8e forced RSW, 5 IF-AB3 steps GPU vs CPU (64^2): sol rel err {err:.3e} (limit "
+          f"{FRAME_SOL_RTOL})", flush=True)
+    if not err < FRAME_SOL_RTOL:
+        raise AssertionError("the forced RSW steps differ between the card and the CPU")
+
+    times = ray1d.benchmark_integrators(device=device)
+    print(f"8e benchmark_integrators (4096 rays, 1000 steps through a 512-point field, CUDA "
+          f"events after a warm-up): " + ", ".join(f"{m} {s:.4f} s" for m, s in times.items())
+          + f"; phase 8e {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false",
@@ -1468,11 +1813,11 @@ def main() -> int:
 
     # the RK4 main path: every launch counted from here on is the hero's
     ray_step.reset_launches()
-    main_run = hero(card, device, "bilinear", spinup_steps=200, n_frames=4)
+    main_run = hero(card, device, "bilinear", spinup_steps=200, n_frames=4)[0]
     if main_run["launches"] != 20:
         raise AssertionError(f"hero launched the table kernel {main_run['launches']} times, "
                              f"not 20")
-    rows = [main_run] + [hero(card, device, interp, spinup_steps=0, n_frames=2)
+    rows = [main_run] + [hero(card, device, interp, spinup_steps=0, n_frames=2)[0]
                          for interp in INTERPS[1:]]
     check_rows(rows, INTERPS)
     counts = dict(ray_step.table_launches)
@@ -1480,9 +1825,9 @@ def main() -> int:
     # the adaptive main path: its launches are counted from 0 again
     ray_step.reset_launches()
     ad_main = hero(card, device, "bilinear", spinup_steps=0, n_frames=3,
-                   ray_method="adaptive", ray_opts=HERO_ADAPTIVE)
+                   ray_method="adaptive", ray_opts=HERO_ADAPTIVE)[0]
     ad_rows = [ad_main] + [hero(card, device, interp, spinup_steps=0, n_frames=1,
-                                ray_method="adaptive", ray_opts=HERO_ADAPTIVE)
+                                ray_method="adaptive", ray_opts=HERO_ADAPTIVE)[0]
                            for interp in INTERPS[1:]]
     check_rows(ad_rows, INTERPS)
     attempt_counts = dict(ray_step.table_attempt_launches)
@@ -1511,6 +1856,16 @@ def main() -> int:
     phase_cli_gpu_vs_cpu(card)
     # phase 7: the other flow models; each path's launches counted from 0
     model_launches = phase_models(card, device)
+    # phase 8: birth/death, steady-raytracing and the other new paths; the
+    # kernel against its twin first, then hero_bd and steady-raytracing,
+    # each with the launches counted from 0
+    t8 = time.perf_counter()
+    bd_rows = phase_birth_death_kernel(card, device)
+    hero_bd, hero_bd_driver = phase_hero_bd(card, device, main_run["coupled_steps_per_s"])
+    phase_bd_checkpoint_on_cpu(card, hero_bd_driver)
+    steady = phase_steady_raytracing(card)
+    phase_new_paths_gpu_vs_cpu(card, device)
+    print(f"phase 8 done in {time.perf_counter() - t8:.1f} s", flush=True)
     for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
@@ -1540,7 +1895,11 @@ def main() -> int:
         for interp in INTERPS] + [
         {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
          "launches": probe_counts[kernel], **probe_rows[kernel]}
-        for kernel, (_, _, source, replaces) in PROBE_KERNELS.items()]}))
+        for kernel, (_, _, source, replaces) in PROBE_KERNELS.items()] + [
+        # no Pallas kernel: the reference's weibull_birth_death is XLA-fused
+        {"name": "birth_death", "route": "cuda", "source": BD_SOURCE, "replaces": BD_REPLACES,
+         "launches": hero_bd["bd_launches"], "n": 1 << 18, **bd_rows[1 << 18],
+         "at_1M": bd_rows[1 << 20]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

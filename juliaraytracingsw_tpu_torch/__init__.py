@@ -6,9 +6,13 @@ through :class:`coupled.driver.CoupledDriver`. Module names and layouts
 mirror the JAX package, which stays the reference the port is tested
 against. The fused RK4 ray substep and the fused DP5(4) attempt are
 hand-written CUDA kernels (``csrc/ray_step.cu``, ``csrc/ray_attempt.cu``,
-bound in ``ops/ray_step.py``); ``profiling`` runs the gather and copy
-probes on four more (``csrc/probe_*.cu``, bound in ``ops/probes.py``);
-everything else is plain PyTorch. The entry points run on the card unless
+bound in ``ops/ray_step.py``); Weibull birth/death resampling is one
+more (``csrc/birth_death.cu``, bound in ``ops/birth_death.py``, its
+Threefry draws those of ``jax.random``: ``rays/prng.py``); ``profiling``
+runs the gather and copy probes on four more (``csrc/probe_*.cu``, bound
+in ``ops/probes.py``); everything else is plain PyTorch. All of the JAX
+package is ported but ``parallel/`` (the sharded flow and the cluster
+launch). The entry points run on the card unless
 a caller passes ``device="cpu"``.
 
 This package imports ``torch``, ``numpy`` and ``scipy`` only, never JAX.

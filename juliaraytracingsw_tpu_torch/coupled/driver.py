@@ -7,12 +7,16 @@
   frame carries the previous step's table as the old time level, so each
   flow step builds one table) or through the taps path, or the adaptive
   integrator (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg
-  7(8)), which builds its own pair table from the two snapshots. With
-  ``remat`` each interleaved step is checkpointed for the backward pass.
+  7(8)), which builds its own pair table from the two snapshots; with
+  ``birth_death`` the ensemble is resampled after each ray step
+  (``rays/resample.weibull_birth_death``, one kernel launch on the card).
+  With ``remat`` each interleaved step is checkpointed for the backward
+  pass.
 - ``make_flow_frame``: flow-only steps (spinup).
 - ``CoupledDriver``: the host loop around the frames, with spinup, the NaN
-  guard, rolling HDF5 outputs (snapshots and packet telemetry),
-  diagnostics, CFL/walltime logging and bit-exact checkpoints.
+  guard, rolling HDF5 outputs (snapshots, packet and population
+  telemetry), diagnostics, the live dashboard, CFL/walltime logging and
+  bit-exact checkpoints (the birth/death key included).
 
 Frames are Python loops that enqueue device work; the host waits on the
 device once per frame, in the NaN guard, and again where a frame's
@@ -39,7 +43,9 @@ from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_fro
                              make_pair_table, raytrace, raytrace_adaptive,
                              raytrace_tables_fb, resolve_gather, sample_gradients,
                              sample_velocity)
-from ..rays.resample import k_cutoff_reset
+from ..rays.prng import prng_key
+from ..rays.resample import (BirthDeathState, init_birth_death, k_cutoff_reset,
+                             weibull_birth_death)
 
 __all__ = [
     "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
@@ -63,21 +69,16 @@ def derive_nu(nutune: float, nx: int, nnu: int, dt: float) -> float:
 
 class SimState(NamedTuple):
     """Full coupled simulation state, in float32 (complex64 ``sol``) or
-    float64 (complex128). ``bd`` (birth/death) is always None until that
-    resampling is ported (ROADMAP queue 1, item 5)."""
+    float64 (complex128). ``bd`` (when birth/death resampling is on)
+    carries the ensemble's ages, lifetimes, birth count and the PRNG key,
+    so a checkpoint continues the same stochastic stream."""
 
     sol: torch.Tensor
     clock: Clock
     stepper_state: tuple | NamedTuple
     packets: Packets
     fields: torch.Tensor   # (5, ny, nx) current interpolation fields
-    bd: None = None
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to juliaraytracingsw_tpu_torch yet "
-        f"(ROADMAP queue 1, {item})")
+    bd: BirthDeathState | None = None
 
 
 def _check_ray_method(ray_method: str) -> None:
@@ -98,6 +99,7 @@ def make_coupled_frame(
     frozen_flow: bool = False,
     dt: float | None = None,
     remat: bool = False,
+    birth_death: dict | None = None,
     ray_opts: dict | None = None,
     ray_info_fn: Callable | None = None,
     n_packets: int | None = None,
@@ -109,7 +111,11 @@ def make_coupled_frame(
     trace the fixed fields. ``remat=True`` checkpoints each interleaved
     step (``torch.utils.checkpoint``, the counterpart of the reference's
     ``jax.checkpoint``): the backward pass recomputes a step instead of
-    keeping its intermediates. ``ray_opts`` go to ``raytrace_adaptive`` for
+    keeping its intermediates. ``birth_death`` = dict(k_shape=, lam=) resamples
+    the ensemble after each ray step (and the k-cutoff reset) over the
+    step's ``clock.t - t0``, new positions in the domain from ``(rp.x0,
+    rp.y0)``; it needs ``SimState.bd`` (``rays/resample.init_birth_death``).
+    ``ray_opts`` go to ``raytrace_adaptive`` for
     the adaptive methods (rtol, atol, max_steps, init_substeps, loop,
     pair); ``ray_info_fn``, if given, is called with the info dict of each
     flow step's adaptive integration (once, not again when a checkpointed
@@ -135,7 +141,7 @@ def make_coupled_frame(
     if adaptive:
         ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
 
-    def one(sol, clock, sstate, packets, fields_old, T_old):
+    def one(sol, clock, sstate, packets, fields_old, T_old, bd):
         """One interleaved flow/ray step -> the next carry and the adaptive
         info (None for the fixed-step methods)."""
         t0, info = clock.t, None
@@ -158,11 +164,18 @@ def make_coupled_frame(
                                nsubsteps=ray_substeps, method=ray_method)
         if k_cutoff is not None:
             packets = k_cutoff_reset(packets, k_cutoff, k0)
-        return (sol, clock, sstate, packets, fields, T_new), info
+        if birth_death is not None:
+            packets, bd, _ = weibull_birth_death(
+                packets, bd, clock.t - t0, grid.Lx, grid.Ly, k0,
+                k_shape=birth_death.get("k_shape", 1.5), lam=birth_death.get("lam", 10.0),
+                x0=rp.x0, y0=rp.y0)
+        return (sol, clock, sstate, packets, fields, T_new, bd), info
 
     def frame(sim: SimState) -> SimState:
         T0 = build_patch_table(sim.fields, rp.interp) if use_patch else None
-        carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0)
+        if birth_death is not None and sim.bd is None:
+            raise ValueError("birth_death needs SimState.bd (rays/resample.init_birth_death)")
+        carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0, sim.bd)
         for _ in range(flow_steps):
             if remat:
                 carry, info = checkpoint(one, *carry, use_reentrant=False)
@@ -170,8 +183,8 @@ def make_coupled_frame(
                 carry, info = one(*carry)
             if info is not None and ray_info_fn is not None:
                 ray_info_fn(info)
-        sol, clock, sstate, packets, fields, _ = carry
-        return SimState(sol, clock, sstate, packets, fields, None)
+        sol, clock, sstate, packets, fields, _, bd = carry
+        return SimState(sol, clock, sstate, packets, fields, bd)
 
     return frame
 
@@ -216,8 +229,11 @@ class CoupledDriver:
     ``save_diagnostics``. ``checkpoint``/``restore`` save and load the whole
     ``SimState`` in the format the JAX package reads and writes.
 
-    Options whose code is not ported yet raise NotImplementedError naming
-    the ROADMAP item: birth/death and the live dashboard.
+    ``birth_death=True`` resamples the ensemble each coupled step (Weibull
+    shape ``bd_k_shape``, scale ``bd_lam``, key ``prng_key(bd_seed)``,
+    float32 ages and lifetimes); each packet frame then also writes
+    ``p/births/<step>`` and ``p/mean_age/<step>``. ``live`` (a
+    ``utils/live.LiveDashboard``) is refreshed after each frame.
     """
 
     model: Model
@@ -234,7 +250,11 @@ class CoupledDriver:
     k0: float | None = None
     frozen_flow: bool = False
     remat: bool = False
+    # Weibull birth/death resampling
     birth_death: bool = False
+    bd_k_shape: float = 1.5
+    bd_lam: float = 10.0
+    bd_seed: int = 0
     # outputs
     snapshot_writer: object | None = None    # io/output.SequencedWriter
     packet_writer: object | None = None
@@ -247,10 +267,6 @@ class CoupledDriver:
 
     def __post_init__(self):
         _check_ray_method(self.ray_method)
-        if self.birth_death:
-            raise _not_ported("birth/death resampling", "item 5")
-        if self.live is not None:
-            raise _not_ported("the live dashboard", "item 12")
         check_ray_params(self.rp)
         self._init_fn, self._step_fn = build_stepper(
             self.model, self.stepper, self.dt, self.use_filter,
@@ -267,12 +283,18 @@ class CoupledDriver:
     def init(self, sol0: torch.Tensor, packets: Packets, clock: Clock | None = None):
         grid = self.model.grid
         fields = fields_from_psih(self.psih_fn(sol0), grid, self.rp.interp)
+        bd = None
+        if self.birth_death:
+            bd = init_birth_death(prng_key(self.bd_seed, device=sol0.device), packets.n,
+                                  k_shape=self.bd_k_shape, lam=self.bd_lam,
+                                  dtype=packets.x.dtype)
         self.sim = SimState(
             sol=sol0,
             clock=clock if clock is not None else zero_clock(device=sol0.device),
             stepper_state=self._init_fn(sol0),
             packets=packets,
             fields=fields,
+            bd=bd,
         )
         if self.snapshot_writer is not None:
             from ..io.output import save_problem
@@ -290,11 +312,13 @@ class CoupledDriver:
         key = (kind, flow_steps)
         if key not in self._frame_cache:
             if kind == "coupled":
+                bd_cfg = (dict(k_shape=self.bd_k_shape, lam=self.bd_lam)
+                          if self.birth_death else None)
                 self._frame_cache[key] = make_coupled_frame(
                     self.model, self._step_fn, self.psih_fn, self.rp,
                     flow_steps, self.ray_substeps, self.ray_method,
                     self.k_cutoff, self.k0, self.frozen_flow, self.dt, self.remat,
-                    self.ray_opts, self.ray_infos.append,
+                    bd_cfg, self.ray_opts, self.ray_infos.append,
                 )
             else:
                 self._frame_cache[key] = make_flow_frame(
@@ -324,6 +348,8 @@ class CoupledDriver:
             self._check_nan(f"frame {i}")
             self._record_diagnostics(i)
             self._write_packet_frame()
+            if self.live is not None:
+                self.live.update(self.sim, self.model.grid, self.diag_times, self.diag_series)
             if self.snapshot_writer is not None and i % snapshot_every == 0:
                 step = self.sim.clock.step
                 self.snapshot_writer.write_frame(step, sol=self.sim.sol)
@@ -367,6 +393,11 @@ class CoupledDriver:
         self.packet_writer.write_packets(
             sim.clock.step, float(sim.clock.t), x=cols(0, 2), k=cols(2, 4), u=cols(4, 6),
             g=cols(6, 10) if self.write_gradients else None)
+        if sim.bd is not None:
+            # population telemetry: cumulative rebirths and the mean age
+            step = sim.clock.step
+            self.packet_writer.write(f"p/births/{step}", int(sim.bd.births))
+            self.packet_writer.write(f"p/mean_age/{step}", float(sim.bd.age.mean()))
 
     def _log(self, i: int):
         sim = self.sim

@@ -11,7 +11,8 @@ import torch
 
 from ..core.spectral import enforce_reality, rfft2
 
-__all__ = ["random_band_psih", "band_geo_wave_ic", "front_ic", "ty_initial_condition"]
+__all__ = ["random_band_psih", "band_geo_wave_ic", "front_ic", "ty_initial_condition",
+           "upsample_snapshot"]
 
 
 def _grid_np(t: torch.Tensor) -> np.ndarray:
@@ -152,3 +153,19 @@ def ty_initial_condition(grid, rng, k0g_range=(0, 1), k0w_range=(0, 1),
     zth = -Krsq * psith
     sol = np.stack([zth, gh[0] + wh[0], gh[1] + wh[1], gh[2] + wh[2]]).astype(np.complex64)
     return enforce_reality(torch.as_tensor(sol, device=grid.device), grid)
+
+
+def upsample_snapshot(snapshot, new_grid) -> torch.Tensor:
+    """Zero-pad a ``(C, nl_s, nkr_s)`` spectral snapshot (a tensor or an
+    array) onto a finer grid: the low-|l| rows go to the start, the high
+    (negative l) rows to the end, scaled by (nl_new / nl_old)^2 for the
+    FFT normalisation; on ``new_grid``'s device."""
+    snap = (snapshot.detach().cpu().numpy() if isinstance(snapshot, torch.Tensor)
+            else np.asarray(snapshot))
+    C, nl_s, nkr_s = snap.shape
+    half = nkr_s - 1
+    scale = new_grid.nl ** 2 / nl_s ** 2
+    out = np.zeros((C, new_grid.nl, new_grid.nkr), snap.dtype)
+    out[:, :half, :nkr_s] = scale * snap[:, :half, :]
+    out[:, -(nl_s - half):, :nkr_s] = scale * snap[:, half:, :]
+    return torch.as_tensor(out, device=new_grid.device)

@@ -21,6 +21,16 @@ Subcommands ported:
     thomasyamada         two-phase Thomas-Yamada run (``--restart-file``)
     single-wave          one enveloped wave injected into spun-up RSW, with
                          two packets at its centre
+    steady-raytracing    packets through a frozen snapshot (a band-limited
+                         streamfunction or ``--snapshot-file``)
+    sweep                one run of an experiment per row of a sweep table
+                         (``--task``, ``JRSW_SWEEP_INDEX``,
+                         ``SLURM_ARRAY_TASK_ID``)
+    omega-k              per-k frequency spectra of a finished run
+                         (``--model rsw|ty``, ``--stft-window``,
+                         ``--mem-cap-gb``, ``--fanout``)
+    omega-k-plot         radial (omega, K) power from the per-k files
+    b-parameter          ray diffusivity b from the per-k psi rows
     analyze              offline analysis suite over finished run dirs
 
 Common flow per run: derive dt from the CFL tune and the hyperviscosity,
@@ -29,10 +39,15 @@ with rolling HDF5 outputs (``<base>.%06d.h5``, ``packets.%06d.h5``),
 diagnostics (``diagnostics.h5``) and, with ``--checkpoint``, a checkpoint
 that either package restores. The files are the JAX package's.
 
+The coupled subcommands take ``--birth-death`` (Weibull resampling of
+the ensemble, seeded by ``--seed``) and ``--live N`` (a dashboard,
+``live.png``/``live.html``, every N frames; needs matplotlib).
+
 ``--platform`` names the torch device (default ``cuda``); without a card
-the run fails and says to pass ``--platform cpu``. The other subcommands
-and options of the JAX command line exit with a message naming the
-ROADMAP item that ports them.
+the run fails and says to pass ``--platform cpu``. ``omega-k-plot`` and
+``b-parameter`` are host analyses (numpy, h5py). ``--sharded`` and
+``--distributed`` exit with a message naming the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -46,7 +61,7 @@ import torch
 
 __all__ = ["build_parser", "run", "main", "Case", "setup_rsw", "setup_swqg",
            "setup_twolayer", "setup_single_wave", "setup_thomasyamada", "SETUPS",
-           "inject", "start_clock", "schedule", "make_driver"]
+           "inject", "start_clock", "schedule", "make_driver", "steady_raytracing"]
 
 
 def _not_ported(what: str, item: str) -> SystemExit:
@@ -55,18 +70,8 @@ def _not_ported(what: str, item: str) -> SystemExit:
                       f"(python -m juliaraytracingsw_tpu.experiments) runs it")
 
 
-# subcommands of the JAX command line that wait for their ROADMAP item
-_UNPORTED_COMMANDS = {
-    "steady-raytracing": "item 12",
-    "sweep": "item 12",
-    "omega-k": "item 12",
-    "omega-k-plot": "item 12",
-    "b-parameter": "item 12",
-}
-# (attribute, flag, item) of the options that wait for theirs
+# (attribute, flag, item) of the options that wait for their ROADMAP item
 _UNPORTED_OPTIONS = (
-    ("birth_death", "--birth-death", "item 5"),
-    ("live", "--live", "item 12"),
     ("sharded", "--sharded", "item 13"),
     ("distributed", "--distributed", "item 13"),
 )
@@ -99,7 +104,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--restore", default=None,
                    help="resume from a checkpoint file (of either package)")
     p.add_argument("--live", type=int, default=0, metavar="N",
-                   help="not ported (ROADMAP queue 1, item 12)")
+                   help="refresh a live dashboard (<out-dir>/live.html, live.png) "
+                        "every N frames; needs matplotlib")
 
 
 def _add_platform(p: argparse.ArgumentParser):
@@ -131,9 +137,12 @@ def _add_packets(p: argparse.ArgumentParser):
                    help="storage dtype of the ray pair table")
     p.add_argument("--frozen-flow", action="store_true")
     p.add_argument("--birth-death", action="store_true",
-                   help="not ported (ROADMAP queue 1, item 5)")
-    p.add_argument("--bd-k-shape", type=float, default=1.5)
-    p.add_argument("--bd-lam", type=float, default=10.0)
+                   help="Weibull birth/death resampling of the ensemble (its "
+                        "random stream seeded by --seed)")
+    p.add_argument("--bd-k-shape", type=float, default=1.5,
+                   help="Weibull shape parameter of packet lifetimes")
+    p.add_argument("--bd-lam", type=float, default=10.0,
+                   help="Weibull scale of packet lifetimes")
 
 
 def _device(platform: str) -> torch.device:
@@ -479,11 +488,17 @@ def schedule(args) -> tuple[int, int, int]:
 
 def make_driver(args, case: Case, snapshot_writer=None, packet_writer=None,
                 log_fn: Callable = print):
-    """The ``CoupledDriver`` of a parsed command line and its ``Case``."""
+    """The ``CoupledDriver`` of a parsed command line and its ``Case``
+    (with ``--live``, its dashboard)."""
     from ..coupled.driver import CoupledDriver
 
     adaptive = args.ray_method in ("adaptive", "adaptive7")
     k0 = case.k0 if case.k0 is not None else _k0(args, case.f, case.Cg)
+    live = None
+    if getattr(args, "live", 0):
+        from ..utils.live import LiveDashboard
+
+        live = LiveDashboard(args.out_dir, title=case.base, every=args.live)
     return CoupledDriver(
         model=case.model, psih_fn=case.psih_fn, rp=case.rp, dt=args.dt,
         stepper=args.stepper, use_filter=args.use_filter,
@@ -492,8 +507,10 @@ def make_driver(args, case: Case, snapshot_writer=None, packet_writer=None,
                       max_steps=args.ray_max_steps) if adaptive else None,
         k_cutoff=100.0 * case.f / case.Cg, k0=k0,
         frozen_flow=args.frozen_flow,
+        birth_death=args.birth_death, bd_k_shape=args.bd_k_shape, bd_lam=args.bd_lam,
+        bd_seed=args.seed,
         snapshot_writer=snapshot_writer, packet_writer=packet_writer,
-        diagnostics=case.diagnostics, log_fn=log_fn,
+        diagnostics=case.diagnostics, log_fn=log_fn, live=live,
     )
 
 
@@ -640,8 +657,367 @@ def cmd_analyze(args, log_fn: Callable = print):
     return rep
 
 
-def _cmd_unported(name: str, item: str, args, log_fn: Callable = print):
-    raise _not_ported(f"the {name} subcommand", item)
+def steady_raytracing(args, packet_writer, log_fn: Callable = print):
+    """Packets through a frozen snapshot: a band-limited random
+    streamfunction, or ``--snapshot-file``/``--snapshot-key`` (a JLD2/HDF5
+    psih). ``--packet-velocity-scale`` s runs the packets on a clock scaled
+    by s with Cg/s. Each of the ``T / output_dt`` frames is ``round(s
+    output_dt / dt)`` substeps from the frame's start, and its positions,
+    wavenumbers and velocities go to ``packet_writer`` (an
+    ``io/output.SequencedWriter`` or any object with its
+    ``write_packets``/``close``), copied to the host at once ->
+    (packets, t)."""
+    from ..coupled.initial_conditions import random_band_psih
+    from ..rays.packets import lattice_packets
+    from ..rays.raytrace import (RayParams, fields_from_psih, raytrace, resolve_gather,
+                                 sample_velocity)
+
+    grid, dt, nu, rng = _setup(args)
+    f, Cg = args.f, args.cg
+    if args.snapshot_file:
+        from ..io.jld2 import load_array
+
+        psih = torch.as_tensor(
+            load_array(args.snapshot_file, args.snapshot_key).astype(np.complex64),
+            device=grid.device)
+    else:
+        psih = random_band_psih(grid, rng, kband=tuple(args.Kg), amp=args.ag)
+    s = args.packet_velocity_scale
+    rp = RayParams(f=f, Cg=Cg / s, x0=float(grid.x[0]), y0=float(grid.y[0]), dx=grid.dx,
+                   dy=grid.dy, interp=args.interp, table_dtype=args.table_dtype,
+                   gather=args.gather)
+    rp = resolve_gather(rp, args.sqrt_npackets ** 2, grid.ny, grid.nx)
+    fields = fields_from_psih(psih, grid, args.interp)
+    packets = lattice_packets(args.sqrt_npackets, grid.Lx, grid.Ly, k0=_k0(args, f, Cg),
+                              k_ring=args.k_ring, device=grid.device)
+    nframes = max(int(args.T / args.output_dt), 1)
+    sub = max(int(round(s * args.output_dt / dt)), 1)
+    t = 0.0
+    for i in range(nframes):
+        packets = raytrace(packets, fields, fields, s * t, s * (t + args.output_dt), rp,
+                           nsubsteps=sub, method=args.ray_method)
+        t += args.output_dt
+        u, v = sample_velocity(packets, fields, rp)
+        host = torch.stack([packets.x, packets.y, packets.k, packets.l, u, v]).cpu().numpy()
+        packet_writer.write_packets(i, t, x=np.ascontiguousarray(host[0:2].T),
+                                    k=np.ascontiguousarray(host[2:4].T),
+                                    u=np.ascontiguousarray(host[4:6].T))
+    packet_writer.close()
+    log_fn(f"done: {nframes} packet frames, t={t:.2f}")
+    return packets, t
+
+
+def cmd_steady_raytracing(args, log_fn: Callable = print):
+    """Packets through a frozen snapshot, written to ``packets.%06d.h5``."""
+    from ..io.output import SequencedWriter
+
+    writer = SequencedWriter(os.path.join(args.out_dir, "packets"), args.max_writes)
+    return steady_raytracing(args, writer, log_fn)
+
+
+def cmd_sweep(args, log_fn: Callable = print):
+    """Run an experiment of this command line once per row of a sweep
+    table, each row's columns as ``--name value`` options, into
+    ``<out-dir>/task_<id>``; ``--task`` picks one row (1-based), and so
+    do ``JRSW_SWEEP_INDEX`` (0-based) or ``SLURM_ARRAY_TASK_ID`` (1-based)
+    under a job array -> the rows run."""
+    import shlex
+    import subprocess
+    import sys
+
+    from ..config.params import load_sweep_table
+    from ..parallel.launcher import sweep_row_from_env
+
+    rows = load_sweep_table(args.table)
+    if args.task is None and ("SLURM_ARRAY_TASK_ID" in os.environ
+                              or "JRSW_SWEEP_INDEX" in os.environ):
+        sel = [sweep_row_from_env(rows)]
+    else:
+        sel = rows if args.task is None else [rows[args.task - 1]]
+    procs: list[tuple[str, subprocess.Popen]] = []
+
+    def drain(limit):
+        while len(procs) >= limit:
+            tid, proc = procs.pop(0)
+            if proc.wait() != 0:
+                raise SystemExit(f"sweep task {tid} failed rc={proc.returncode}")
+
+    for i, row in enumerate(sel):
+        task_id = row.get("ArrayTaskID", str(i + 1))
+        extra = []
+        for key, val in row.items():
+            if key != "ArrayTaskID":
+                extra += [f"--{key.replace('_', '-')}", val]
+        cmd = [sys.executable, "-m", "juliaraytracingsw_tpu_torch.experiments",
+               args.experiment, "--out-dir", os.path.join(args.out_dir, f"task_{task_id}"),
+               *extra, *shlex.split(args.extra_args)]
+        log_fn(f"sweep task {task_id} : {' '.join(cmd)}")
+        drain(args.max_parallel)
+        procs.append((task_id, subprocess.Popen(cmd)))
+    drain(1)
+    return sel
+
+
+def _host(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _run_grid(run_dir: str, base: str, device="cpu"):
+    """The reader of a run's snapshot files and its grid."""
+    from ..core.grid import make_grid
+    from ..io.output import SequencedReader
+
+    reader = SequencedReader(os.path.join(run_dir, base))
+    grid = make_grid(int(reader.read("grid/nx")), Lx=float(reader.read("grid/Lx")),
+                     device=device)
+    return reader, grid
+
+
+def _omega_k_fanout(args, log_fn: Callable):
+    """``--fanout N``: the whole k range as N concurrent omega-k processes
+    of this command line on the CPU (each sizing its sub-blocks to
+    ``--mem-cap-gb`` / N)."""
+    import sys
+
+    from ..parallel.launcher import launch_sweep
+
+    base_cmd = [sys.executable, "-m", "juliaraytracingsw_tpu_torch.experiments", "omega-k",
+                args.run_dir, "--base", args.base, "--model", args.model, "--out-dir",
+                args.out_dir, "--ntasks", str(args.fanout),
+                "--mem-cap-gb", str(args.mem_cap_gb / args.fanout),
+                "--stft-window", str(args.stft_window), "--platform", "cpu"]
+    if not args.decompose:
+        base_cmd.append("--no-decompose")
+    rcs = launch_sweep(base_cmd, [{"task": i + 1} for i in range(args.fanout)],
+                       os.path.join(args.out_dir, "_logs"), max_parallel=args.fanout,
+                       out_flag=None)
+    bad = [i + 1 for i, rc in enumerate(rcs) if rc != 0]
+    if bad:
+        raise SystemExit(f"omega-k fan-out tasks failed: {bad}")
+    log_fn(f"fan-out of {args.fanout} omega-k tasks complete")
+
+
+def cmd_omega_k(args, log_fn: Callable = print):
+    """Per-k frequency spectra of a finished run: for the task's k rows
+    (``--task``/``--ntasks``), the time series of each row (the wave and
+    balanced coefficients c0/cp/cm and psit with ``--decompose``, the
+    Thomas-Yamada rows with ``--model ty``, the raw state otherwise),
+    detrended, windowed and transformed in time, one
+    ``radial_data_k=%03d.h5`` a row; ``--stft-window`` adds sliding-window
+    spectra, ``--mem-cap-gb`` bounds the collected series, ``--fanout``
+    runs the whole range as concurrent processes. The eigenbases are built
+    on ``--platform``; the analysis runs on the host -> files written."""
+    import h5py
+
+    from ..analysis.omega_k import (clean_fft, collect_time_series, count_snapshots, hann,
+                                    snapshot_shape, stft_omega_k)
+    from ..models.rsw import RSWParams
+    from ..models.wave_vortex import balanced_wave_bases
+
+    if args.fanout > 0:
+        return _omega_k_fanout(args, log_fn)
+    reader, grid = _run_grid(args.run_dir, args.base, _device(args.platform))
+    nkr = grid.nkr
+    job = max(nkr // args.ntasks, 1)
+    k_lo = (args.task - 1) * job
+    k_hi = nkr if args.task == args.ntasks else min(args.task * job, nkr)
+    log_fn(f"task {args.task}/{args.ntasks}: k rows [{k_lo}, {k_hi})")
+    kr, ell = _host(grid.kr), _host(grid.l)
+
+    if args.model == "ty":
+        from ..models.thomasyamada import ty_bases
+
+        # eigenbases once; sub-blocks slice them. Rows for the cap: 6
+        # series, 3 complex-U rows and ~3 rows of FFT temporaries
+        ty_full = [_host(b) for b in ty_bases(grid)]
+        n_vars = 12
+    elif args.decompose:
+        f0 = float(reader.read("params/f"))
+        Cg2 = float(reader.read("params/Cg2"))
+        params = RSWParams(nu=0.0, nnu=4, f=f0, Cg2=Cg2)
+        Cg = float(np.sqrt(Cg2))
+        bases_full = [_host(b) for b in balanced_wave_bases(grid, params)]
+        n_vars = 5   # c0/cp/cm + psit + an FFT temporary
+    else:
+        shape = snapshot_shape(reader)
+        n_vars = int(shape[0]) if shape else 3
+
+    def make_extract(lo, hi):
+        """The extract function and the complex-row functions of one k sub-block
+        [lo, hi)."""
+        complex_rows = {}
+        if args.model == "ty":
+            # barotropic (ut, vt) from zeta_t, wave/geo-projected baroclinic
+            # (ug, vg, uw, vw), and complex U = u + i v, whose one-sided FFT
+            # separates the +/- frequency branches
+            invK = _host(grid.invKrsq)[:, lo:hi]
+            kr_b = kr[None, lo:hi]
+            ell_c = ell[:, None]
+            Phi0, Phip, Phim = (b[:, :, lo:hi] for b in ty_full)
+
+            def extract(snap):
+                blk = snap[:, :, lo:hi]
+                psit = -blk[0] * invK
+                bc = blk[1:4]
+                c0 = np.sum(bc * np.conj(Phi0), axis=0)
+                cp = np.sum(bc * np.conj(Phip), axis=0)
+                cm = np.sum(bc * np.conj(Phim), axis=0)
+                Gh = c0[None] * Phi0
+                Wh = cp[None] * Phip + cm[None] * Phim
+                return {"ut": -1j * ell_c * psit, "vt": 1j * kr_b * psit,
+                        "ug": Gh[0], "vg": Gh[1], "uw": Wh[0], "vw": Wh[1]}
+
+            complex_rows = {
+                "U_balanced": lambda s: (s["ut"] + s["ug"]) + 1j * (s["vt"] + s["vg"]),
+                "U_wave": lambda s: s["uw"] + 1j * s["vw"],
+                "U_total": lambda s: (s["ut"] + s["ug"] + s["uw"])
+                + 1j * (s["vt"] + s["vg"] + s["vw"]),
+            }
+        elif args.decompose:
+            bases = [b[:, :, lo:hi] for b in bases_full]
+            ikb = 1j * kr[None, lo:hi]
+            ilb = 1j * ell[:, None]
+            invKKd = 1.0 / (_host(grid.Krsq)[:, lo:hi] + f0 * f0 / Cg2)
+
+            def extract(snap):
+                # the eigen-coefficient rows c0/c+/c- of the sub-block (the
+                # projection of (u, v, Cg eta) on conj(Phi)) and the
+                # geostrophic streamfunction row psit = -qh / (K^2 + Kd^2)
+                # that b-parameter reads
+                blk = snap[:, :, lo:hi]
+                state = np.stack([blk[0], blk[1], Cg * blk[2]])
+                out = {name: np.sum(state * np.conj(Phi), axis=0)
+                       for name, Phi in zip(("c0", "cp", "cm"), bases)}
+                qh = ikb * blk[1] - ilb * blk[0] - f0 * blk[2]
+                out["psit"] = -qh * invKKd
+                return out
+        else:
+            def extract(snap):
+                return {"sol": snap[..., lo:hi]}
+
+        return extract, complex_rows
+
+    # bounded memory: the task's k range in sub-blocks whose collected
+    # (T, ny, block) series fit --mem-cap-gb, one pass over the files each
+    T_est = count_snapshots(reader)
+    if T_est < 4:
+        raise SystemExit("not enough snapshots for a time FFT")
+    bytes_per_col = T_est * grid.ny * 16 * max(n_vars, 1)
+    cap = int(args.mem_cap_gb * 2 ** 30)
+    block = max(1, min(k_hi - k_lo, cap // max(bytes_per_col, 1)))
+    n_blocks = -(-(k_hi - k_lo) // block)
+    if n_blocks > 1:
+        log_fn(f"mem cap {args.mem_cap_gb} GB -> {n_blocks} sub-blocks of <= {block} k rows "
+               f"({T_est} snapshots)")
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    written = []
+    for lo in range(k_lo, k_hi, block):
+        hi = min(lo + block, k_hi)
+        extract, complex_rows = make_extract(lo, hi)
+        t, series = collect_time_series(reader, extract)
+        if len(t) < 4:
+            raise SystemExit("not enough snapshots for a time FFT")
+        w = hann(len(t))
+        wsh = w.reshape((len(t),) + (1,) * (series[next(iter(series))].ndim - 1))
+        # window-only FFT, so the +/- asymmetry of the complex velocity stays
+        u_ffts = {name: np.fft.fft(wsh * fn(series), axis=0)
+                  for name, fn in complex_rows.items()}
+        for ki in range(lo, hi):
+            path = os.path.join(args.out_dir, f"radial_data_k={ki:03d}.h5")
+            with h5py.File(path, "w") as out:
+                out["t"] = t
+                out["k"] = float(kr[ki])
+                for name, d in series.items():
+                    out[name] = clean_fft(t, d[..., ki - lo], w)
+                for name, Uf in u_ffts.items():
+                    out[name] = Uf[..., ki - lo]
+                if args.stft_window:
+                    for name, d in series.items():
+                        centers, st_om, spec = stft_omega_k(t, d[..., ki - lo],
+                                                            args.stft_window)
+                        out[f"stft/{name}"] = spec
+                    out["stft/centers"] = centers
+                    out["stft/omega"] = st_om
+            written.append(path)
+    log_fn(f"wrote {len(written)} per-k files -> {args.out_dir}")
+    return written
+
+
+def cmd_omega_k_plot(args, log_fn: Callable = print):
+    """Assemble the per-k files into radially binned (omega, K) power of
+    each class: ``omega_k_radial.h5`` and one heatmap PNG a class (the
+    inertia-gravity dispersion curve over the wave classes of an RSW run)
+    -> the file's path."""
+    import h5py
+
+    from ..analysis.figures import plot_omega_k_heatmap
+    from ..analysis.omega_k import assemble_radial_omega_k
+
+    reader, grid = _run_grid(args.run_dir, args.base)
+    omega, radii, power = assemble_radial_omega_k(args.omega_dir, grid,
+                                                  names=tuple(args.names.split(",")))
+    dispersion = None
+    try:
+        f0 = float(reader.read("params/f"))
+        Cg2 = float(reader.read("params/Cg2"))
+
+        def dispersion(K):
+            return np.sqrt(f0 * f0 + Cg2 * K * K)
+    except KeyError:
+        pass   # runs of other models store no f/Cg2
+    os.makedirs(args.out_dir, exist_ok=True)
+    out_path = os.path.join(args.out_dir, "omega_k_radial.h5")
+    with h5py.File(out_path, "w") as f:
+        f["omega"] = omega
+        f["K"] = radii
+        for name, pw in power.items():
+            f[name] = pw
+    for name, pw in power.items():
+        plot_omega_k_heatmap(omega, radii, pw, args.out_dir, name=f"omega_k_{name}.png",
+                             title=f"{name} power",
+                             dispersion=dispersion if name in ("cp", "cm", "U_wave") else None)
+    log_fn(f"assembled {len(power)} classes -> {out_path}")
+    return out_path
+
+
+def cmd_b_parameter(args, log_fn: Callable = print):
+    """Ray diffusivity b from the per-k psit rows: the correlation
+    spectrum C(omega, q), the WKB resonance integral D11(k) and the fit
+    D11 = b (k/Kd)^2, into ``<omega-dir>/b_parameter.h5`` -> b."""
+    import glob
+    import re
+
+    import h5py
+
+    from ..analysis.b_parameter import compute_D11, fit_b, psi_correlation
+
+    reader, grid = _run_grid(args.run_dir, args.base)
+    f0 = float(reader.read("params/f"))
+    Kd = f0 / float(np.sqrt(float(reader.read("params/Cg2"))))
+    psit_by_k, t = {}, None
+    for path in sorted(glob.glob(os.path.join(args.omega_dir, "radial_data_k=*.h5"))):
+        ki = int(re.search(r"k=(\d+)", os.path.basename(path)).group(1))
+        with h5py.File(path, "r") as f:
+            if "psit" not in f:
+                continue
+            if t is None:
+                t = f["t"][()]
+            psit_by_k[ki] = f["psit"][()]
+    if not psit_by_k:
+        raise SystemExit(f"no psit rows found in {args.omega_dir} — run omega-k with "
+                         "--decompose first")
+    omegas, C = psi_correlation(psit_by_k, t, grid)
+    k, D11 = compute_D11(omegas, C, grid, f0, Kd, n_points=min(args.n_points, grid.nkr * 4))
+    b = fit_b(k, D11, Kd)
+    out_path = os.path.join(args.omega_dir, "b_parameter.h5")
+    with h5py.File(out_path, "w") as f:
+        f["k"] = k
+        f["D11"] = D11
+        f["b"] = b
+        f["Kd"] = Kd
+    log_fn(f"b = {b:.6e} (Kd={Kd:.3f}, {len(psit_by_k)} k rows) -> {out_path}")
+    return b
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -747,29 +1123,88 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--env-size", type=float, default=0.5)
     p.set_defaults(fn=cmd_single_wave)
 
+    p = sub.add_parser("steady-raytracing", help="packets through a frozen snapshot")
+    _add_common(p)
+    _add_packets(p)
+    p.add_argument("--cg", type=float, default=1.0)
+    p.add_argument("--f", type=float, default=3.0)
+    p.add_argument("--Kg", type=float, nargs=2, default=(2, 6))
+    p.add_argument("--ag", type=float, default=0.2)
+    p.add_argument("--snapshot-file", default=None,
+                   help="JLD2/HDF5 file holding the frozen streamfunction spectrum")
+    p.add_argument("--snapshot-key", default="snapshots/sol/0")
+    p.add_argument("--packet-velocity-scale", type=float, default=1.0,
+                   help="time-rescaled packet clock s: tspan *= s, Cg /= s")
+    p.set_defaults(fn=cmd_steady_raytracing)
+
+    p = sub.add_parser("sweep", help="one run of an experiment per row of a sweep table")
+    p.add_argument("experiment")
+    p.add_argument("table")
+    p.add_argument("--task", type=int, default=None, help="run only this 1-based task id")
+    p.add_argument("--out-dir", default="sweep")
+    p.add_argument("--extra-args", default="",
+                   help="options added to every run (e.g. '--platform cpu')")
+    p.add_argument("--max-parallel", type=int, default=1,
+                   help="run up to this many sweep tasks concurrently")
+    p.set_defaults(fn=cmd_sweep)
+
+    p = sub.add_parser("omega-k", help="per-k frequency spectra of a finished run")
+    p.add_argument("run_dir")
+    p.add_argument("--base", default="rsw")
+    p.add_argument("--model", default="rsw", choices=["rsw", "ty"],
+                   help="ty: the Thomas-Yamada wave/geostrophic rows and complex U")
+    p.add_argument("--task", type=int, default=1, help="1-based task id")
+    p.add_argument("--ntasks", type=int, default=1)
+    p.add_argument("--decompose", action="store_true", default=True,
+                   help="store the wave/balanced eigen-coefficients c0/c+/c-")
+    p.add_argument("--no-decompose", dest="decompose", action="store_false")
+    p.add_argument("--out-dir", default="omega_k")
+    p.add_argument("--mem-cap-gb", type=float, default=8.0,
+                   help="stream the task's k range in sub-blocks whose collected time "
+                        "series fit this many GB")
+    p.add_argument("--stft-window", type=int, default=0,
+                   help="also store sliding-window spectra of each row with this "
+                        "window length")
+    p.add_argument("--fanout", type=int, default=0,
+                   help="run the whole analysis as N concurrent omega-k processes on "
+                        "the CPU (in place of --task/--ntasks)")
+    _add_platform(p)
+    p.set_defaults(fn=cmd_omega_k)
+
+    p = sub.add_parser("omega-k-plot",
+                       help="radially binned (omega, K) power from the per-k files")
+    p.add_argument("run_dir")
+    p.add_argument("--base", default="rsw")
+    p.add_argument("--omega-dir", default="omega_k")
+    p.add_argument("--names", default="c0,cp,cm",
+                   help="comma-separated dataset names to assemble")
+    p.add_argument("--out-dir", default="omega_k")
+    p.set_defaults(fn=cmd_omega_k_plot)
+
+    p = sub.add_parser("b-parameter", help="ray diffusivity b from the per-k psit rows")
+    p.add_argument("run_dir")
+    p.add_argument("--base", default="rsw")
+    p.add_argument("--omega-dir", default="omega_k")
+    p.add_argument("--n-points", type=int, default=176)
+    p.set_defaults(fn=cmd_b_parameter)
+
     p = sub.add_parser("analyze", help="offline analysis suite over run dirs")
     p.add_argument("run_dir", nargs="+")
     p.add_argument("--base", default="rsw")
     p.add_argument("--figures-dir", default=None)
     _add_platform(p)
     p.set_defaults(fn=cmd_analyze)
-
-    for name, item in _UNPORTED_COMMANDS.items():
-        p = sub.add_parser(name, help=f"not ported (ROADMAP queue 1, {item})")
-        p.set_defaults(fn=partial(_cmd_unported, name, item))
     return ap
 
 
 def run(argv=None, log_fn: Callable = print):
     """Parse ``argv`` and run its subcommand; returns the coupled run's
     ``CoupledDriver``, the analysis report(s), ``thomasyamada``'s (sol,
-    clock, diagnostics) or ``twolayer-simulation``'s file. Every line the
-    run prints goes to ``log_fn``."""
-    ap = build_parser()
-    # an unported subcommand takes the JAX command line's arguments unread
-    args, extra = ap.parse_known_args(argv)
-    if extra and args.cmd not in _UNPORTED_COMMANDS:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    clock, diagnostics), ``twolayer-simulation``'s file,
+    ``steady-raytracing``'s (packets, t), the sweep's rows, omega-k's
+    files, omega-k-plot's file or b-parameter's b. Every line the run
+    prints goes to ``log_fn``."""
+    args = build_parser().parse_args(argv)
     return args.fn(args, log_fn)
 
 

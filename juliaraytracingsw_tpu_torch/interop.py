@@ -3,8 +3,9 @@
 The keys are the reference ``SimState``'s fields: ``sol``, ``clock.t``,
 ``clock.step``, ``stepper_state.N1``, ``stepper_state.N2`` (the AB3
 steppers' history; the one-step steppers keep none), ``packets.x``,
-``packets.y``, ``packets.k``, ``packets.l``, ``packets.sign`` and
-``fields``. ``sim_state_to_numpy`` reads any object with that structure
+``packets.y``, ``packets.k``, ``packets.l``, ``packets.sign``,
+``fields`` and, for a birth/death run, ``bd.age``, ``bd.lifetime``,
+``bd.key`` (the PRNG key, two uint32 words) and ``bd.births`` (int32). ``sim_state_to_numpy`` reads any object with that structure
 whose leaves ``np.asarray`` understands (so also the JAX package's state,
 without importing JAX here) as well as this package's tensors;
 ``sim_state_from_numpy`` builds this package's ``SimState`` on a device, in
@@ -19,10 +20,12 @@ import torch
 from .core.steppers import AB3State, Clock, EmptyState
 from .coupled.driver import SimState
 from .rays.packets import Packets
+from .rays.resample import BirthDeathState
 
 __all__ = ["sim_state_to_numpy", "sim_state_from_numpy"]
 
 _PACKET_FIELDS = ("x", "y", "k", "l", "sign")
+_BD_FIELDS = ("age", "lifetime", "key", "births")
 
 
 def _np(a) -> np.ndarray:
@@ -33,9 +36,6 @@ def _np(a) -> np.ndarray:
 
 def sim_state_to_numpy(sim) -> dict:
     """Flatten a SimState (this package's or the reference's) to numpy."""
-    if getattr(sim, "bd", None) is not None:
-        raise NotImplementedError(
-            "birth/death state is not carried across (ROADMAP queue 1, item 5)")
     d = {
         "sol": _np(sim.sol),
         "clock.t": _np(sim.clock.t),
@@ -46,12 +46,16 @@ def sim_state_to_numpy(sim) -> dict:
         d[f"stepper_state.{name}"] = _np(getattr(sim.stepper_state, name))
     for name in _PACKET_FIELDS:
         d[f"packets.{name}"] = _np(getattr(sim.packets, name))
+    if getattr(sim, "bd", None) is not None:
+        for name in _BD_FIELDS:
+            d[f"bd.{name}"] = _np(getattr(sim.bd, name))
     return d
 
 
 def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> SimState:
     """Build this package's SimState on ``device``, with an AB3 history
-    where ``d`` holds one and an empty stepper state otherwise."""
+    where ``d`` holds one and an empty stepper state otherwise, and the
+    birth/death state where ``d`` holds one."""
 
     def t(key, single, double):
         a = np.asarray(d[key])
@@ -64,6 +68,13 @@ def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> Sim
     def r(key):
         return t(key, np.float32, np.float64)
 
+    bd = None
+    if "bd.age" in d:
+        bd = BirthDeathState(
+            age=r("bd.age"), lifetime=r("bd.lifetime"),
+            key=torch.as_tensor(np.array(d["bd.key"], np.uint32, copy=True), device=device),
+            births=torch.as_tensor(np.array(d["bd.births"], np.int32, copy=True),
+                                   device=device).reshape(()))
     return SimState(
         sol=c("sol"),
         clock=Clock(r("clock.t").reshape(()), int(d["clock.step"])),
@@ -71,4 +82,5 @@ def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> Sim
                        if "stepper_state.N1" in d else EmptyState()),
         packets=Packets(*(r(f"packets.{n}") for n in _PACKET_FIELDS)),
         fields=r("fields"),
+        bd=bd,
     )

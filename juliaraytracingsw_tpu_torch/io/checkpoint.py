@@ -7,8 +7,10 @@ trajectory. The file is the reference's ``.npz``: ``leaf_<i>`` in JAX's
 flatten order and ``__treepaths__``, the key path of every leaf (for a
 ``SimState``: ``.sol``, ``.clock.t``, ``.clock.step``,
 ``.stepper_state.N1``, ``.stepper_state.N2``, ``.packets.x`` ... ``.sign``,
-``.fields``; ``None`` is no leaf). So a checkpoint written by either
-package restores in the other. ``Clock.step``, a host ``int`` here, is
+``.fields``, then for a birth/death run ``.bd.age``, ``.bd.lifetime``,
+``.bd.key`` (the PRNG key, uint32[2]) and ``.bd.births`` (int32); ``None``
+is no leaf). So a checkpoint written by either package restores in the
+other, the random stream included. ``Clock.step``, a host ``int`` here, is
 stored as a 0-d int32 and restored as an ``int``.
 
 Restore checks the stored paths, the leaf count and every leaf's shape

@@ -55,7 +55,8 @@ def _modified_N(solh, grid, pressure_of_h):
     return torch.stack([Nu, Nv, Nh])
 
 
-def make_model(grid, nu=1e-16, nnu=4, f=1.0, Cg=1.0) -> Model:
+def make_model(grid, nu=1e-16, nnu=4, f=1.0, Cg=1.0, forcing=None) -> Model:
+    """``forcing(sol, t) -> Fh``: an optional additive spectral forcing."""
     params = RSWParams(nu=float(nu), nnu=int(nnu), f=float(f), Cg2=float(Cg) ** 2)
     L = build_L_modified(grid, params)
     Cg2 = params.Cg2
@@ -64,6 +65,9 @@ def make_model(grid, nu=1e-16, nnu=4, f=1.0, Cg=1.0) -> Model:
         return Cg2 * (1.5 - 0.5 / (1.0 + eta) ** 2)
 
     def calcN(solh, t):
-        return _modified_N(solh, grid, pressure)
+        N = _modified_N(solh, grid, pressure)
+        if forcing is not None:
+            N = N + forcing(solh, t)
+        return N
 
     return Model(name="modified_sw", grid=grid, params=params, L=L, calcN=calcN, nfields=3)

@@ -24,7 +24,7 @@ from ..core.spectral import (irfft2, irfft2_dealiased, parseval_sum2,
 from .base import Model
 
 __all__ = [
-    "RSWParams", "make_model", "build_L", "updatevars",
+    "RSWParams", "make_model", "build_L", "updatevars", "set_solution",
     "kinetic_energy", "potential_energy", "total_energy",
 ]
 
@@ -99,12 +99,17 @@ def make_model(
     nnu: int = 4,
     f: float = 1.0,
     Cg: float = 1.0,
+    forcing=None,
 ) -> Model:
+    """``forcing(sol, t) -> Fh`` is an optional additive spectral forcing."""
     params = RSWParams(nu=float(nu), nnu=int(nnu), f=float(f), Cg2=float(Cg) ** 2)
     L = build_L(grid, params)
 
     def calcN(solh, t):
-        return _advection_N(solh, grid)
+        N = _advection_N(solh, grid)
+        if forcing is not None:
+            N = N + forcing(solh, t)
+        return N
 
     return Model(name="rsw", grid=grid, params=params, L=L, calcN=calcN, nfields=3)
 
@@ -116,6 +121,11 @@ def updatevars(solh: torch.Tensor, grid: Grid, params: RSWParams):
     zetah = grid.ik * vh - grid.il * uh - params.f * etah
     phys = irfft2(torch.stack([uh, vh, etah, zetah]), grid.nx)
     return phys[0], phys[1], phys[2], phys[3]
+
+
+def set_solution(u0h: torch.Tensor, v0h: torch.Tensor, eta0h: torch.Tensor) -> torch.Tensor:
+    """The spectral state ``(3, nl, nkr)`` of (uh, vh, etah)."""
+    return torch.stack([u0h, v0h, eta0h])
 
 
 def kinetic_energy(solh: torch.Tensor, grid: Grid) -> torch.Tensor:

@@ -66,6 +66,7 @@ __all__ = [
     "build_pair",
     "check_ray_params",
     "fields_from_psih",
+    "fields_from_velocity_spectra",
     "make_pair_table",
     "raytrace",
     "raytrace_adaptive",
@@ -121,6 +122,19 @@ def fields_from_psih(psih: torch.Tensor, grid, interp: str = "bilinear") -> torc
         ik, il = grid.ik, grid.il
         stackh = torch.cat([stackh, ik * stackh, il * stackh, ik * il * stackh])
     elif interp == "bspline":
+        stackh = stackh * bspline_prefilter_mask(grid)
+    return irfft2(stackh, grid.nx)
+
+
+def fields_from_velocity_spectra(uh: torch.Tensor, vh: torch.Tensor, grid,
+                                 interp: str = "bilinear") -> torch.Tensor:
+    """The ``(5, ny, nx)`` stack [u, v, ux, uy, vx] from explicit (uh, vh),
+    for flows not derived from a streamfunction. v_y is not stored (the
+    ray equations take it as -u_x), so pass the divergence-free part. As
+    in the reference, 'bicubic' gets no derivative blocks here."""
+    ik, il = grid.ik, grid.il
+    stackh = torch.stack([uh, vh, ik * uh, il * uh, ik * vh])
+    if interp == "bspline":
         stackh = stackh * bspline_prefilter_mask(grid)
     return irfft2(stackh, grid.nx)
 

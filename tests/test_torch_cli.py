@@ -13,9 +13,15 @@ package's command line:
   packages, and a two-layer checkpoint restored in the other package;
 - the golden 128^2 ``rsw`` run and its ``analyze`` suite to
   ``tests/test_golden_run.py``'s values and tolerances;
-- each subcommand and option that is not ported exits naming its ROADMAP
-  item, and a run asked for the card where there is none names
-  ``--platform cpu``.
+- ``--birth-death`` (``rsw``, ``twolayer``): the population telemetry
+  equal to the JAX command line's, and ``single-wave``'s (which the JAX
+  command line drops); ``--live``: the dashboard's files;
+- ``steady-raytracing`` (a band-limited snapshot and ``--snapshot-file``,
+  ``--packet-velocity-scale``) against the JAX command line at 64^2, the
+  packets within 1e-5; ``sweep`` with ``--task`` and with
+  ``JRSW_SWEEP_INDEX``, each row's run equal to the JAX command line's;
+- ``--sharded`` and ``--distributed`` exit naming their ROADMAP item, and a
+  run asked for the card where there is none names ``--platform cpu``.
 """
 import glob
 import os
@@ -63,6 +69,10 @@ COUPLED = {
     "twolayer-baroclinic": (["twolayer", "--baroclinic"], "2Lqg"),
     "twolayer-3layers": (["twolayer", "--nlayers", "3"], "3Lqg"),
     "single-wave": (["single-wave"], "single_wave"),
+    # lifetimes of ~0.05 against the runs' t = 0.15: many rebirths
+    "rsw-birth-death": (["rsw", "--birth-death", "--bd-lam", "0.05"], "rsw"),
+    "twolayer-birth-death": (["twolayer", "--birth-death", "--bd-lam", "0.05",
+                              "--bd-k-shape", "2.0"], "2Lqg"),
 }
 
 
@@ -92,8 +102,14 @@ def test_cli_matches_jax(tmp_path, argv, base):
                 assert err < 1e-5, err
             elif key.startswith("p/") and key.split("/")[1] in "xkug":
                 np.testing.assert_allclose(got, want, rtol=0, atol=1e-4, err_msg=key)
-            elif key.startswith(("grid/", "params/", "clock/", "p/t/", "snapshots/t/")):
+            elif key.startswith(("grid/", "params/", "clock/", "p/t/", "snapshots/t/",
+                                 "p/births/")):
                 np.testing.assert_array_equal(got, want, err_msg=key)
+            elif key.startswith("p/mean_age/"):
+                np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=key)
+    if "--birth-death" in argv:
+        births = [v for k, v in jd["packets.000001.h5"].items() if k.startswith("p/births/")]
+        assert max(births) > 0 and drv.sim.bd is not None
 
 
 def test_cli_checkpoint_restores_in_the_jax_cli(tmp_path):
@@ -149,23 +165,14 @@ def test_analyze_many_runs(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["steady-raytracing"], "item 12"),
-    (["sweep", "rsw", "table.csv"], "item 12"),
-    (["omega-k", "run"], "item 12"),
-    (["omega-k-plot", "run"], "item 12"),
-    (["b-parameter", "run"], "item 12"),
-    (["rsw", "--birth-death"], "item 5"),
-    (["swqg", "--live", "2"], "item 12"),
     (["rsw", "--sharded"], "item 13"),
     (["swqg", "--distributed"], "item 13"),
     (["twolayer", "--sharded"], "item 13"),
     (["thomasyamada", "--sharded"], "item 13"),
-    (["single-wave", "--birth-death"], "item 5"),
 ])
 def test_unported_pieces_exit_naming_their_item(tmp_path, argv, item):
     with pytest.raises(SystemExit, match=f"not ported.*{item}") as exc:
-        tcli.run(argv + (["--platform", "cpu", "--out-dir", str(tmp_path)]
-                         if argv[0] not in tcli._UNPORTED_COMMANDS else []), log_fn=_quiet)
+        tcli.run(argv + ["--platform", "cpu", "--out-dir", str(tmp_path)], log_fn=_quiet)
     assert exc.value.code not in (0, None)
     assert not os.listdir(tmp_path)
 
@@ -272,3 +279,151 @@ def test_nlayers_refuses_two_layer_options(tmp_path, flag):
     with pytest.raises(SystemExit, match="two-layer-only"):
         tcli.run(["twolayer", "--nlayers", "3", "--nx", "16", "--platform", "cpu",
                   "--out-dir", str(tmp_path)] + flag, log_fn=_quiet)
+
+
+def test_single_wave_birth_death(tmp_path):
+    """``single-wave --birth-death``: the two packets live and die by the
+    Weibull clock (the JAX command line's single-wave drops the option)."""
+    drv = tcli.run(["single-wave"] + SMALL + ["--out-dir", str(tmp_path), "--platform", "cpu",
+                                              "--birth-death", "--bd-lam", "0.02"],
+                   log_fn=_quiet)
+    births = {k: int(v) for name, data in _datasets(str(tmp_path)).items()
+              for k, v in data.items() if k.startswith("p/births/")}
+    assert len(births) == 4 and births[max(births, key=lambda k: int(k.split("/")[-1]))] \
+        == int(drv.sim.bd.births) > 0
+    assert drv.sim.bd.age.shape == (2,)
+
+
+def test_live_dashboard_writes_its_page(tmp_path):
+    """``--live 2``: the dashboard's page and image after frames 1 and 3."""
+    drv = tcli.run(["swqg"] + SMALL + ["--out-dir", str(tmp_path), "--platform", "cpu",
+                                       "--live", "2"], log_fn=_quiet)
+    assert drv.live is not None and drv.live._count == 4
+    assert (tmp_path / "live.png").stat().st_size > 0
+    assert "live: swqg" in (tmp_path / "live.html").read_text()
+
+
+STEADY = ["steady-raytracing", "--nx", "64", "--sqrt-npackets", "8", "--T", "0.06",
+          "--output-dt", "0.03", "--seed", "3"]
+
+
+def _packet_frames(run_dir):
+    return _datasets(run_dir)["packets.000000.h5"]
+
+
+@pytest.mark.parametrize("extra,atol", [
+    ([], 1e-5),
+    (["--packet-velocity-scale", "2.0", "--gather", "patch", "--table-dtype", "bfloat16"], 5e-4),
+], ids=["taps", "patch"])
+def test_steady_raytracing_matches_jax(tmp_path, extra, atol):
+    """Packets through a frozen band-limited snapshot at 64^2, 2 frames.
+    The bfloat16 table may flip a stored value by an ulp where the two
+    packages' fields differ by one (``tests/test_torch_driver.py``: 5e-4)."""
+    jmain(STEADY + extra + ["--out-dir", str(tmp_path / "jax")])
+    lines = []
+    packets, t = tcli.run(STEADY + extra + ["--out-dir", str(tmp_path / "torch"), "--platform",
+                                            "cpu"], log_fn=lines.append)
+    assert lines[-1] == "done: 2 packet frames, t=0.06" and packets.x.device.type == "cpu"
+    jd, td = _packet_frames(str(tmp_path / "jax")), _packet_frames(str(tmp_path / "torch"))
+    assert sorted(td) == sorted(jd) and "p/x/1" in td
+    for key, want in jd.items():
+        if key.startswith("p/") and key.split("/")[1] in ("x", "k", "u"):
+            np.testing.assert_allclose(td[key], want, rtol=0, atol=atol, err_msg=key)
+        else:
+            np.testing.assert_array_equal(td[key], want, err_msg=key)
+    assert np.abs(td["p/x/1"] - td["p/x/0"]).max() > 1e-3
+
+
+def test_steady_raytracing_reads_a_snapshot_file(tmp_path):
+    """``--snapshot-file``: a psih spectrum stored under
+    ``--snapshot-key`` drives the packets, as in the JAX command line."""
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import random_band_psih
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+
+    grid = make_grid(64, device="cpu")
+    psih = random_band_psih(grid, np.random.default_rng(8), kband=(3, 5), amp=0.4).numpy()
+    path = str(tmp_path / "snap.h5")
+    with h5py.File(path, "w") as f:
+        f["flow/psih"] = psih
+    extra = ["--snapshot-file", path, "--snapshot-key", "flow/psih"]
+    jmain(STEADY + extra + ["--out-dir", str(tmp_path / "jax")])
+    tcli.run(STEADY + extra + ["--out-dir", str(tmp_path / "torch"), "--platform", "cpu"],
+             log_fn=_quiet)
+    jd, td = _packet_frames(str(tmp_path / "jax")), _packet_frames(str(tmp_path / "torch"))
+    for key in ("p/x/1", "p/k/1", "p/u/1"):
+        np.testing.assert_allclose(td[key], jd[key], rtol=0, atol=1e-5, err_msg=key)
+
+
+SWEEP_RUN = ["--nx", "32", "--sqrt-npackets", "2", "--spinup-T", "0.03", "--T", "0.09",
+             "--output-dt", "0.03", "--max-writes", "3", "--platform", "cpu"]
+
+
+def _sweep_table(tmp_path):
+    table = tmp_path / "table.txt"
+    table.write_text("# reference-style whitespace table\nArrayTaskID seed ag\n"
+                     "1 3 0.5\n2 4 0.8\n")
+    return str(table)
+
+
+def test_sweep_matches_jax(tmp_path, monkeypatch):
+    """``sweep rsw table --task 2`` and the same row picked by
+    ``JRSW_SWEEP_INDEX=1``: each runs the row's options through the port's
+    command line, and the run equals the JAX command line's sweep of it."""
+    table = _sweep_table(tmp_path)
+    extra = ["--extra-args", " ".join(SWEEP_RUN)]
+    jmain(["sweep", "rsw", table, "--task", "2", "--out-dir", str(tmp_path / "jax")] + extra)
+    lines = []
+    rows = tcli.run(["sweep", "rsw", table, "--task", "2", "--out-dir",
+                     str(tmp_path / "torch")] + extra, log_fn=lines.append)
+    assert rows == [{"ArrayTaskID": "2", "seed": "4", "ag": "0.8"}]
+    assert "juliaraytracingsw_tpu_torch.experiments rsw" in lines[0]
+    monkeypatch.setenv("JRSW_SWEEP_INDEX", "1")
+    tcli.run(["sweep", "rsw", table, "--out-dir", str(tmp_path / "env")] + extra,
+             log_fn=_quiet)
+    jd = _datasets(str(tmp_path / "jax" / "task_2"))
+    for run in ("torch", "env"):
+        td = _datasets(str(tmp_path / run / "task_2"))
+        assert sorted(td) == sorted(jd)
+        for key, want in jd["diagnostics.h5"].items():
+            np.testing.assert_allclose(td["diagnostics.h5"][key], want, rtol=1e-5, err_msg=key)
+        xs = [(name, key) for name in jd for key in jd[name] if key.startswith("p/x/")]
+        assert len(xs) == 2
+        for name, key in xs:
+            np.testing.assert_allclose(td[name][key], jd[name][key], rtol=0, atol=1e-4)
+
+
+def test_sweep_reports_a_failed_task(tmp_path):
+    table = _sweep_table(tmp_path)
+    with pytest.raises(SystemExit, match="sweep task 1 failed"):
+        tcli.run(["sweep", "rsw", table, "--task", "1", "--out-dir", str(tmp_path),
+                  "--extra-args=--no-such-option"], log_fn=_quiet)
+
+
+def test_sweep_launcher_rows_and_processes(tmp_path):
+    """``parallel/launcher``: the row a job array's task picks, and
+    ``launch_sweep`` running one process per row with its options, index
+    and log; the cluster half raises naming its ROADMAP item."""
+    import sys
+
+    from juliaraytracingsw_tpu.parallel import launcher as jl
+    from juliaraytracingsw_tpu_torch.parallel import launcher as tl
+
+    rows = [{"seed": "1"}, {"seed": "2"}, {"seed": "3"}]
+    for env in ({"JRSW_SWEEP_INDEX": "2"}, {"SLURM_ARRAY_TASK_ID": "2"}):
+        assert tl.sweep_row_from_env(rows, env) == jl.sweep_row_from_env(rows, env)
+    with pytest.raises(RuntimeError, match="no sweep index"):
+        tl.sweep_row_from_env(rows, {})
+    # argv: --out <run dir> --seed <row's seed>
+    code = ("import os, sys; os.makedirs(sys.argv[2]); open(os.path.join(sys.argv[2], 'seed'),"
+            " 'w').write(sys.argv[4] + os.environ['JRSW_SWEEP_INDEX'])")
+    rcs = tl.launch_sweep([sys.executable, "-c", code], rows[:2], str(tmp_path),
+                          max_parallel=2, out_flag="--out")
+    assert rcs == [0, 0]
+    assert [(tmp_path / f"run00{i}" / "seed").read_text() for i in (0, 1)] == ["10", "21"]
+    # without an --out directory: argv is --seed 1, and the exit code comes back
+    rcs = tl.launch_sweep([sys.executable, "-c", "import sys; sys.exit(len(sys.argv))"],
+                          rows[:1], str(tmp_path / "b"), out_flag=None)
+    assert rcs == [3] and (tmp_path / "b" / "run000.log").exists()
+    for fn in (tl.resolve_cluster, tl.initialize_from_env):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            fn({})

@@ -599,3 +599,110 @@ def test_new_steppers_gpu_match_cpu(stepper, cuda_device):
         assert sol.device.type == torch.device(device).type and clock.step == 10
         out.append(sol.cpu())
     assert float((out[0] - out[1]).abs().max() / out[1].abs().max()) < 1e-5
+
+
+def _bd_inputs(n, dtype, device, seed=0):
+    from juliaraytracingsw_tpu_torch.rays import prng
+    from juliaraytracingsw_tpu_torch.rays.resample import init_birth_death
+
+    rng = np.random.default_rng(seed)
+    cols = (rng.uniform(-np.pi, np.pi, n), rng.uniform(-np.pi, np.pi, n), rng.normal(size=n),
+            rng.normal(size=n), np.where(rng.uniform(size=n) < 0.5, 1.0, -1.0))
+    p = [torch.as_tensor(c, dtype=dtype, device=device) for c in cols]
+    bd = init_birth_death(prng.prng_key(seed + 1, device=device), n, dtype=dtype)
+    return p, list(bd)
+
+
+def _ulps(a, b):
+    """|a - b| in units of b's ulp."""
+    a, b = a.cpu().double(), b.cpu()
+    spacing = torch.as_tensor(np.spacing(np.abs(b.numpy())), dtype=torch.float64)
+    return float(((a - b.double()).abs() / spacing).max()) if a.numel() else 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 4099, 100_003])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k_shape", [1.5, 2.0])
+def test_birth_death_matches_twin(n, dtype, k_shape, cuda_device):
+    """The birth/death kernel against its twin on the card, 3 chained steps
+    (each fed the kernel's last output) with a dt that kills many packets:
+    everything bit-equal but lifetimes, within 1 ulp (float64 log and pow
+    rounded once); the twin on the card bit-equal to the twin on the CPU
+    (float64 lifetimes within 6 ulps: the two devices' libm)."""
+    from juliaraytracingsw_tpu_torch.ops import birth_death as bd
+
+    p, st = _bd_inputs(n, dtype, cuda_device)
+    consts = dict(Lx=L, Ly=L, k0=5.2, k_shape=k_shape, lam=10.0, x0=-L / 2, y0=-L / 2)
+    bd.reset_launches()
+    for step in range(3):
+        state = [*p, *st]
+        dt = torch.tensor(3.0 + step, dtype=dtype, device=cuda_device)
+        out = bd.birth_death(*state, dt, **consts)
+        ref = bd.birth_death_torch(*state, dt, **consts)
+        cpu = bd.birth_death_torch(*(t.cpu() for t in state), dt.cpu(), **consts)
+        torch.cuda.synchronize()
+        for i, (a, b, c) in enumerate(zip(out, ref, cpu)):
+            if i == 6:
+                assert _ulps(a, b) <= 1.0, (step, _ulps(a, b))
+                # float64 log and pow: the card's (log within 1 ulp, pow
+                # within 2) against the CPU's libm, then the product with
+                # lam: up to ~5.4 ulps apart (measured 3); float32 rounds
+                # that away
+                assert (_ulps(b, c) <= 6.0 if dtype == torch.float64
+                        else torch.equal(b.cpu(), c)), (step, _ulps(b, c))
+            else:
+                assert torch.equal(a, b), (step, i)
+                assert torch.equal(b.cpu(), c), (step, i)
+        assert out[9].dtype == torch.bool and out[8].dtype == torch.int32
+        assert out[7].dtype == torch.uint32
+        p, st = list(out[:5]), list(out[5:9])
+    assert bd.launches["birth_death"] == 3
+    if n > 1000:
+        assert int(st[3]) > n // 10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_birth_death_gradient_matches_twin(dtype, cuda_device):
+    """The kernel's gradient (a live packet's cotangents through, its age's
+    also to dt; a dead one's 0) against autograd through the twin on the
+    card, with a dt that kills about a third of the packets."""
+    from juliaraytracingsw_tpu_torch.ops import birth_death as bd
+
+    n = 100_003
+    p, st = _bd_inputs(n, dtype, cuda_device, seed=4)
+    consts = dict(Lx=L, Ly=L, k0=5.2, k_shape=1.5, lam=10.0, x0=-L / 2, y0=-L / 2)
+    rng = np.random.default_rng(5)
+    w = [torch.as_tensor(rng.normal(size=n), dtype=dtype, device=cuda_device)
+         for _ in range(7)]
+    grads, deaths = [], []
+    bd.reset_launches()
+    for fn in (bd.birth_death, bd.birth_death_torch):
+        ins = [t.clone().requires_grad_() for t in (*p, st[0], st[1])]
+        dt = torch.tensor(4.0, dtype=dtype, device=cuda_device, requires_grad=True)
+        out = fn(*ins, st[2], st[3], dt, **consts)
+        loss = sum((o * wi).sum() for o, wi in zip(out[:7], w))
+        grads.append(torch.autograd.grad(loss, [*ins, dt]))
+        deaths.append(int(out[9].sum()))
+    assert bd.launches["birth_death"] == 1
+    assert deaths[0] == deaths[1] > n // 10
+    for i, (a, b) in enumerate(zip(*grads)):
+        if i < 7:
+            assert torch.equal(a, b), i
+        else:
+            # dt's: one sum over the live packets in each
+            torch.testing.assert_close(a, b, rtol=1e-12 if dtype == torch.float64 else 1e-5,
+                                       atol=1e-9 if dtype == torch.float64 else 1e-3)
+
+
+@pytest.mark.cuda
+def test_birth_death_refuses_mixed_dtypes(cuda_device):
+    from juliaraytracingsw_tpu_torch.ops import birth_death as bd
+
+    p, st = _bd_inputs(64, torch.float32, cuda_device)
+    consts = dict(Lx=L, Ly=L, k0=5.2, k_shape=1.5, lam=10.0, x0=-L / 2, y0=-L / 2)
+    with pytest.raises(TypeError, match="one dtype"):
+        bd.birth_death(*p, st[0].double(), *st[1:], 1.0, **consts)
+    with pytest.raises(ValueError, match="uint32"):
+        bd.birth_death(*p, st[0], st[1], st[2].to(torch.int64), st[3], 1.0, **consts)

@@ -283,14 +283,15 @@ def test_interop_carries_a_one_step_stepper_state():
     _assert_states_match(dt_.sim, dj.sim)
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(birth_death=True), "item 5"),
+@pytest.mark.parametrize("name,item", [
+    ("run_thomasyamada_sharded", "item 13"),
 ])
-def test_driver_unported_options_raise(option, item):
-    _, t = _setup(sqrtp=2, nx=16)
+def test_driver_unported_options_raise(name, item):
+    """The drivers' paths still to port raise naming their ROADMAP item."""
+    from juliaraytracingsw_tpu_torch.coupled import ty_driver
+
     with pytest.raises(NotImplementedError, match=item):
-        tdrv.CoupledDriver(model=t["model"], psih_fn=t["psih_fn"], rp=t["rp"],
-                           dt=DT, **option)
+        getattr(ty_driver, name)(ty_driver.TYRunConfig(device="cpu"))
 
 
 def test_driver_taps_gather_raises():

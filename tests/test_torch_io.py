@@ -3,7 +3,8 @@ JAX package: the writer/reader round trip with rolling, ``save_problem``'s
 header, checkpoints that restore in either package and the runs that go on
 from them, bit-exact resume, and the refusal of a mismatched checkpoint;
 the JLD2-shaped files (``io/jld2``, ``io/jld2_fixture``) written by either
-package and read by both, and ``utils/twolayer_helpers``.
+package and read by both, ``utils/twolayer_helpers``, and ``io/collated``'s
+rolling entries written by either package and read by the other.
 
 Runs after a restore are held to ``test_torch_driver._assert_states_match``
 (the flow state to 2e-6 of its largest mode, packets to 1e-5 with float32
@@ -294,3 +295,26 @@ def test_twolayer_helpers_match_jax(tmp_path):
     th.display_energetics(0.1, 0.2, 0.2, 0.3, 0.05, log=lines_t.append)
     jh.display_energetics(0.1, 0.2, 0.2, 0.3, 0.05, log=lines_j.append)
     assert lines_t == lines_j
+
+
+@pytest.mark.parametrize("writer_pkg", ["torch", "jax"])
+def test_collated_round_trip_across_packages(tmp_path, writer_pkg):
+    """``io/collated``: entries written by one package's ``CollatedWriter``
+    roll over every ``max_lines`` entries and read back in order through
+    the other package's ``map_input``."""
+    from juliaraytracingsw_tpu.io import collated as jcol
+    from juliaraytracingsw_tpu_torch.io import collated as tcol
+
+    write, read = (tcol, jcol) if writer_pkg == "torch" else (jcol, tcol)
+    base = str(tmp_path / "rows" / "p")
+    rng = np.random.default_rng(3)
+    rows = {f"x/{i}": rng.normal(size=(4, 2)).astype(np.float32) for i in range(7)}
+    with write.CollatedWriter(base, max_lines=3) as w:
+        for key, val in rows.items():
+            w.append(key, val)
+    assert sorted(os.listdir(tmp_path / "rows")) == [f"p_{i:08d}.h5" for i in range(3)]
+    got = read.map_input(base, lambda key, val: (key, val))
+    assert [k for k, _ in got] == list(rows)
+    for key, val in got:
+        np.testing.assert_array_equal(val, rows[key])
+    assert tcol.map_input(str(tmp_path / "none"), lambda k, v: k) == []
