@@ -85,10 +85,29 @@ without them, and on any failed check. Phases, each printing its lines:
    ``steady-raytracing`` through the command line at 512^2 x 1,048,576
    ('auto' -> patch, 2 frames of 20 substeps, exactly 40 table launches);
    8e. a birth/death frame, ``nufft_raytrace``, ``raytrace1d`` and forced
-   RSW steps on the card against the CPU, and ``benchmark_integrators``.
+   RSW steps on the card against the CPU, and ``benchmark_integrators``;
+9. ``parallel/`` on a mesh of one process over NCCL (``make_mesh``: a
+   world-size-1 group on a ``FileStore``; NCCL refuses two ranks on one
+   card, so the multi-rank checks are the CPU tests'): 9a. the slab FFT
+   of a (7, 512, 512) field against ``torch.fft`` to 1e-5, its round trip
+   to 1e-5, one ``all_to_all`` a transform, both timed; 9b.
+   hero_sharded1 (``bench.py:226-254``): ``ShardedRSW`` at 512^2, IF-AB3,
+   1,048,576 packets, bilinear bf16 tables, phase 4's IC spun up 200
+   sharded steps, 4 frames of 5 coupled steps, exactly 20 table launches
+   and no first cut, the first frame held against the replicated frame
+   from the same state (the JAX tests' limits), every frame finite, |k| <
+   k_cutoff, energy within 1%; ray-steps/s over the last 3 frames and
+   ``hero_sharded1_vs_replicated`` (phase 4's of this run); 9c.
+   ``overlap=True`` against the sequential frame at 9b's size; 9d. the
+   command line's ``--sharded`` path without writers: ``rsw`` at 128^2 x
+   16,384, 2 frames, its checkpoint restored on the CPU by the replicated
+   port (the next frame within phase 3's limits), ``twolayer`` at 256^2
+   with taps and ``thomasyamada`` at 128^2 against the replicated port on
+   the card.
 
 The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
-5c, 6a, each coupled case of phase 7, 8b and 8d) and read after it; the heroes must launch only the table forms. The
+5c, 6a, each coupled case of phase 7, 8b, 8d, 9b and 9d) and read after
+it; the heroes must launch only the table forms. The
 first cut runs on no main path: its launches are phase 2's. Every time
 printed carries the card's name and power limit.
 
@@ -1786,6 +1805,307 @@ def phase_new_paths_gpu_vs_cpu(card: str, device) -> None:
           + f"; phase 8e {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
+# phase 9: parallel/ on a mesh of one process over NCCL (make_mesh: a
+# world-size-1 group on a FileStore). P > 1 cannot run on one card (NCCL
+# refuses two ranks on one device): the multi-rank checks are the CPU
+# tests' (gloo, tests/test_torch_parallel.py, test_torch_sharded_*.py).
+SLAB_SHAPE = (7, 512, 512)
+SLAB_RTOL = 1e-5
+# the JAX tests' limits for a sharded run against a replicated one
+SHARDED_SOL_ATOL, SHARDED_SOL_RTOL = 2e-5, 2e-4     # atol x max|sol|
+SHARDED_PACKET_RTOL, SHARDED_PACKET_ATOL = 5e-4, 5e-5
+OVERLAP_RTOL, OVERLAP_ATOL = 1e-6, 1e-7
+
+
+def sharded_close(got, want, what: str, packets: bool = False) -> float:
+    """Assert the JAX tests' limits -> the largest |got - want| over the
+    largest |want|."""
+    got, want = got.cpu(), want.cpu()
+    if packets:
+        ok = torch.allclose(got, want, rtol=SHARDED_PACKET_RTOL, atol=SHARDED_PACKET_ATOL)
+    else:
+        scale = float(want.abs().max())
+        ok = torch.allclose(got, want, rtol=SHARDED_SOL_RTOL, atol=SHARDED_SOL_ATOL * scale)
+    if not ok:
+        raise AssertionError(f"{what}: the sharded run and the replicated one disagree")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_slab_fft(card: str, mesh, shape=SLAB_SHAPE) -> None:
+    """9a: the slab FFT of a (7, 512, 512) field on the mesh against
+    torch.fft on the card, and its round trip; all_to_all calls per
+    transform; both timed with CUDA events."""
+    from juliaraytracingsw_tpu_torch.parallel.fft import slab_irfft2, slab_rfft2
+
+    field = torch.as_tensor(np.random.default_rng(9).standard_normal(shape).astype(np.float32),
+                            device=mesh.device)
+    calls0 = mesh.counts["all_to_all"]
+    spec = slab_rfft2(field, mesh)
+    fwd_calls = mesh.counts["all_to_all"] - calls0
+    back = slab_irfft2(spec, shape[-1], mesh)
+    inv_calls = mesh.counts["all_to_all"] - calls0 - fwd_calls
+    ref = torch.fft.rfft2(field)
+    err = float((spec[..., :ref.shape[-1]] - ref).abs().max() / ref.abs().max())
+    trip = float((back - field).abs().max() / field.abs().max())
+    pad = float(spec[..., ref.shape[-1]:].abs().max()) if spec.shape[-1] > ref.shape[-1] else 0.0
+    ms = {name: min(events_ms(fn, warmup=2, trials=5)) for name, fn in (
+        ("slab_rfft2", lambda: slab_rfft2(field, mesh)),
+        ("torch.fft.rfft2", lambda: torch.fft.rfft2(field)),
+        ("slab_irfft2", lambda: slab_irfft2(spec, shape[-1], mesh)),
+        ("torch.fft.irfft2", lambda: torch.fft.irfft2(ref, s=shape[-2:])))}
+    print(f"9a slab FFT of a {shape} float32 field on a mesh of {mesh.size} "
+          f"({torch.distributed.get_backend()}): against torch.fft.rfft2 rel err {err:.3e} "
+          f"(limit {SLAB_RTOL}), round trip rel err {trip:.3e} (limit {SLAB_RTOL}), pad "
+          f"columns max {pad}; all_to_all calls per transform: forward {fwd_calls}, inverse "
+          f"{inv_calls}; ms (min of 5, CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f" [{card}]", flush=True)
+    if not (err < SLAB_RTOL and trip < SLAB_RTOL and pad == 0.0
+            and fwd_calls == inv_calls == 1):
+        raise AssertionError("9a: the slab FFT failed its checks")
+
+
+def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: int = 512,
+                       sqrtp: int = 1024, spinup_steps: int = 200, n_frames: int = 4) -> dict:
+    """9b: hero_sharded1 (``bench.py:226-254``): ShardedRSW at the hero's
+    size on the mesh, phase 4's IC spun up ``spinup_steps`` sharded steps,
+    ``n_frames`` frames of 5 coupled steps; exactly 5 table launches a
+    frame and no first-cut launch; every frame finite, |k| < k_cutoff,
+    energy within 1%; the first frame against the replicated
+    ``coupled/driver.make_coupled_frame`` from the same state (run after
+    the count is read). Ray-steps/s over the last 3 frames (CUDA events)
+    and its ratio to phase 4's. 9c: ``overlap=True`` against the
+    sequential frame from the end state."""
+    from juliaraytracingsw_tpu_torch.core.steppers import AB3State, zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
+    from juliaraytracingsw_tpu_torch.models import rsw
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets, shard_packets
+    from juliaraytracingsw_tpu_torch.parallel.sharded_rsw import ShardedRSW
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    device = mesh.device
+    grid, model, sol0, rp, psih_fn = make_case(nx, "bilinear", "bfloat16", device)
+    sh = ShardedRSW(grid, model.params, mesh, dt=DT)
+    init_fn, step_fn = sh.stepper()
+    sol, clock = sh.shard_solution(sol0), zero_clock(device=device)
+    state = init_fn(sol)
+    for _ in range(spinup_steps):
+        sol, clock, state = step_fn(sol, clock, state)
+    pk = shard_packets(lattice_packets(sqrtp, grid.Lx, grid.Ly, k0=K0, k_ring=True,
+                                       device=device), mesh)
+    frame = sh.make_coupled_frame(rp, 5, k_cutoff=K_CUTOFF, k0=K0)
+    start = (sol, clock, state, pk)
+    e0 = float(rsw.total_energy(sh.unshard(sol), grid, model.params))
+    ray_step.reset_launches()
+    first_cut0 = launch_counts()["first cut"]
+    marks = [torch.cuda.Event(enable_timing=True)]
+    marks[-1].record()
+    checks, first = [], None
+    for _ in range(n_frames):
+        sol, clock, state, pk = frame(sol, clock, state, pk)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        first = first or (sol, pk)
+        checks.append((sh.unshard(sol), torch.sqrt(pk.k ** 2 + pk.l ** 2).max()))
+    torch.cuda.synchronize()
+    launches = ray_step.table_launches["bilinear"]
+    others = {k: v for k, v in ray_step.table_launches.items() if k != "bilinear"}
+    first_cut = launch_counts()["first cut"] - first_cut0
+    frame_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
+    steady = frame_ms[1:] or frame_ms
+    rate = 5 * len(steady) / (sum(steady) / 1e3)
+    n = sqrtp * sqrtp
+    finite = all(bool(torch.isfinite(s.abs()).all()) for s, _ in checks)
+    kmax = max(float(k) for _, k in checks)
+    dE = max(abs(float(rsw.total_energy(s, grid, model.params)) - e0) / e0 for s, _ in checks)
+
+    # the first frame against the replicated frame from the same state
+    sol_s, clock_s, state_s, pk_s = start
+    full = sh.unshard(sol_s)
+    init_r, step_r = build_stepper(model, "IFMAB3", DT)
+    ref = make_coupled_frame(model, step_r, psih_fn, rp, 5, k_cutoff=K_CUTOFF, k0=K0)(
+        SimState(full, clock_s, AB3State(sh.unshard(state_s.N1), sh.unshard(state_s.N2)),
+                 gather_packets(pk_s, mesh), fields_from_psih(psih_fn(full), grid, rp.interp)))
+    sol_err = sharded_close(sh.unshard(first[0]), ref.sol, "9b sol")
+    got_pk = gather_packets(first[1], mesh)
+    pk_err = max(sharded_close(getattr(got_pk, c), getattr(ref.packets, c), f"9b packets.{c}",
+                               packets=True) for c in "xykl")
+    res = dict(launches=launches, first_cut=first_cut, frame_ms=frame_ms,
+               coupled_steps_per_s=rate, ray_steps_per_s=rate * n,
+               vs_replicated=rate * n / replicated_ray_steps_per_s, kmax=kmax, dE=dE,
+               finite=finite, collectives=dict(mesh.counts))
+    print(f"9b hero_sharded1 (ShardedRSW {nx}^2 on a mesh of {mesh.size}, {n} packets, "
+          f"bilinear bf16 tables, {spinup_steps} sharded spinup steps, {n_frames} frames x 5): "
+          f"{rate:.2f} coupled steps/s, {res['ray_steps_per_s']:.4e} ray-steps/s over the "
+          f"last {len(steady)} frames (frame ms {', '.join(f'{m:.2f}' for m in frame_ms)}); "
+          f"hero_sharded1_vs_replicated {res['vs_replicated']:.3f} (phase 4: "
+          f"{replicated_ray_steps_per_s:.4e}); table kernel launches {launches}, first-cut "
+          f"{first_cut}; first frame vs the replicated frame: sol rel err {sol_err:.3e}, "
+          f"packets rel err {pk_err:.3e}; max |k| {kmax:.3f} (cutoff {K_CUTOFF}); energy "
+          f"change {dE:.3e}; finite {finite}; collectives so far {dict(mesh.counts)} "
+          f"[{card}]", flush=True)
+    if launches != 5 * n_frames or first_cut or any(others.values()):
+        raise AssertionError(f"9b: launched {launches} bilinear table kernels ({others} "
+                             f"others, {first_cut} first cut), not {5 * n_frames}")
+    if not (finite and kmax < K_CUTOFF and dE < 0.01):
+        raise AssertionError("9b: hero_sharded1 failed its checks")
+
+    # 9c: the pipelined frame against the sequential one
+    overlap = sh.make_coupled_frame(rp, 5, k_cutoff=K_CUTOFF, k0=K0, overlap=True)
+    outs = [f(sol, clock, state, pk) for f in (frame, overlap)]
+    (sa, _, _, pa), (sb, cb, _, pb) = outs
+    same_sol = torch.equal(sa, sb)
+    ok = all(torch.allclose(b, a, rtol=OVERLAP_RTOL, atol=OVERLAP_ATOL) for a, b in zip(pa, pb))
+    ms = {name: min(events_ms(lambda f=f: f(sol, clock, state, pk), warmup=1, trials=3))
+          for name, f in (("sequential", frame), ("overlap", overlap))}
+    print(f"9c overlap=True against the sequential frame from the end state (5 steps): sol "
+          f"bit-equal {same_sol}, packets within rtol {OVERLAP_RTOL} atol {OVERLAP_ATOL} "
+          f"{ok}; frame ms (min of 3, CUDA events): sequential {ms['sequential']:.2f}, "
+          f"overlap {ms['overlap']:.2f} (a mesh of 1: its gather is a local copy) [{card}]",
+          flush=True)
+    if not (same_sol and ok and cb.step == clock.step + 5):
+        raise AssertionError("9c: the overlap frame differs from the sequential frame")
+    res["overlap_ms"] = ms
+    return res
+
+
+def phase_sharded_cli(card: str, device, out_dir: str, nx_rsw: int = 128, sqrtp: int = 128,
+                      nx_two: int = 256, nx_ty: int = 128) -> dict:
+    """9d: the command line's ``--sharded`` path (``experiments.__main__.
+    make_sharded``/``run_sharded``, no writers: the card's machine has no
+    h5py): ``rsw`` at 128^2 x 16,384 packets, 2 frames, ``--checkpoint``,
+    restored on the CPU by the replicated port, whose next frame agrees
+    with the sharded run's next frame on the card (phase 3's limits);
+    ``twolayer`` at 256^2 with taps and ``thomasyamada`` at 128^2 (IF-AB3)
+    against the replicated port on the card (the JAX tests' limits)."""
+    from juliaraytracingsw_tpu_torch.core.steppers import AB3State
+    from juliaraytracingsw_tpu_torch.coupled import ty_driver
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import ty_initial_condition
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.io.checkpoint import load_checkpoint
+    from juliaraytracingsw_tpu_torch.models import thomasyamada
+    from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets, make_mesh
+    from juliaraytracingsw_tpu_torch.parallel.sharded import ShardedThomasYamada
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    quiet = lambda line: None   # noqa: E731
+    platform = torch.device(device).type
+
+    def sharded_run(argv):
+        args = cli.build_parser().parse_args(argv)
+        case = cli.SETUPS[args.cmd](args, quiet)
+        cli._check_sharded_options(args)
+        sh = cli.make_sharded(args, case, make_mesh(device=case.model.grid.device))
+        return args, case, cli.run_sharded(args, case, sh, log_fn=quiet)
+
+    ckpt = os.path.join(out_dir, "sharded.npz")
+    argv = coupled_argv("rsw", nx_rsw, sqrtp, 2, "--table-dtype", "float32", *HERO_IC,
+                        "--sharded", "--checkpoint", ckpt, platform=platform)
+    ray_step.reset_launches()
+    args, case, res = sharded_run(argv)
+    torch.cuda.synchronize()
+    rsw_launches = ray_step.table_launches["bilinear"]
+    # one more frame on the card, and from the checkpoint on the CPU
+    sh = res.sh
+    frame = sh.make_coupled_frame(case.rp, 5, k_cutoff=K_CUTOFF, k0=K0)
+    sol_g, _, _, pk_g = frame(res.sol, res.clock, res.state, res.packets)
+    cpu_args = cli.build_parser().parse_args(argv + ["--platform", "cpu"])
+    cpu_case = cli.setup_rsw(cpu_args, quiet)
+    drv = cli.make_driver(cpu_args, cpu_case, log_fn=quiet)
+    like = {"sol": cpu_case.sol0, "clock": zero_clock(device="cpu"),
+            "N1": cpu_case.sol0, "N2": cpu_case.sol0, "packets": cpu_case.packets}
+    tree = load_checkpoint(ckpt, like)
+    drv.sim = SimState(tree["sol"], tree["clock"], AB3State(tree["N1"], tree["N2"]),
+                       tree["packets"],
+                       fields_from_psih(cpu_case.psih_fn(tree["sol"]), cpu_case.model.grid,
+                                        cpu_case.rp.interp))
+    drv.run(1, 5)
+    sol_err = rel_err(sh.unshard(sol_g), drv.sim.sol)
+    got = gather_packets(pk_g, sh.mesh)
+    pk_err = max(float((getattr(got, c).cpu() - getattr(drv.sim.packets, c)).abs().max())
+                 for c in "xykl")
+    print(f"9d rsw --sharded ({nx_rsw}^2, {sqrtp * sqrtp} packets, f32 tables, 2 frames, "
+          f"--gather auto -> {case.rp.gather}): table kernel launches {rsw_launches}; its "
+          f"checkpoint ({os.path.getsize(ckpt) / 2**20:.2f} MiB, the unsharded tree) restored "
+          f"on the CPU by the replicated port: the next frame's sol rel err {sol_err:.3e} "
+          f"(limit {FRAME_SOL_RTOL}), packet max abs err {pk_err:.3e} (limit "
+          f"{FRAME_PACKET_ATOL}) [{card}]", flush=True)
+    if not (rsw_launches == 10 and case.rp.gather == "patch" and sol_err < FRAME_SOL_RTOL
+            and pk_err < FRAME_PACKET_ATOL):
+        raise AssertionError("9d: rsw --sharded failed its checks")
+
+    # twolayer with taps: no table launch; against the replicated port
+    two = coupled_argv("twolayer", nx_two, 64, 2, platform=platform, gather="taps")
+    ray_step.reset_launches()
+    _, two_case, two_res = sharded_run(two + ["--sharded"])
+    torch.cuda.synchronize()
+    two_launches = sum(ray_step.table_launches.values())
+    rep = drive_cli(two, quiet)[0].sim
+    two_sol = sharded_close(two_res.sh.unshard(two_res.sol), rep.sol, "9d twolayer sol")
+    got = gather_packets(two_res.packets, two_res.sh.mesh)
+    two_pk = max(sharded_close(getattr(got, c), getattr(rep.packets, c),
+                               f"9d twolayer packets.{c}", packets=True) for c in "xykl")
+
+    # thomasyamada: the sharded phase against the replicated one, IF-AB3
+    ty_args = cli.build_parser().parse_args(["thomasyamada", "--nx", str(nx_ty), "--platform",
+                                             platform])
+    cfg = cli.setup_thomasyamada(ty_args, quiet)
+    cfg.stepper, cfg.log_fn = "IFMAB3", quiet
+    grid = make_grid(nx_ty, Lx=cfg.Lx, device=device)
+    sol0 = ty_initial_condition(grid, np.random.default_rng(cfg.seed), cfg.k0g_range,
+                                cfg.k0w_range, cfg.at, cfg.ag, cfg.aw)
+    model = thomasyamada.make_model(grid, nu=cfg.nu, nnu=cfg.nnu, Ro=cfg.Ro)
+    tsh = ShardedThomasYamada(grid, model.params, make_mesh(device=device), dt=cfg.dt)
+    outs = []
+    for sharded in (True, False):
+        diags = {k: [] for k in ty_driver.DIAG_KEYS}
+        if sharded:
+            s, c = ty_driver._phase_sharded(tsh, cfg, tsh.shard_solution(sol0),
+                                            zero_clock(device=device), cfg.dt, 20, 10, None,
+                                            diags, "main", time.time())
+            s = tsh.unshard(s)
+        else:
+            s, c = ty_driver._phase(model, cfg, sol0, zero_clock(device=device), cfg.dt, 20,
+                                    10, None, diags, "main", time.time())
+        outs.append((s, diags))
+    ty_sol = sharded_close(outs[0][0], outs[1][0], "9d thomasyamada sol")
+    print(f"9d twolayer --sharded ({nx_two}^2, 4096 packets, taps, 2 frames): table "
+          f"launches {two_launches}; against the replicated port on the card sol rel err "
+          f"{two_sol:.3e}, packets rel err {two_pk:.3e}; thomasyamada sharded ({nx_ty}^2, "
+          f"IF-AB3, 20 steps in 2 chunks) against the replicated phase: sol rel err "
+          f"{ty_sol:.3e}, wave KE {outs[0][1]['wave_ke'][-1]:.6e} / "
+          f"{outs[1][1]['wave_ke'][-1]:.6e} (limits atol {SHARDED_SOL_ATOL} x max|sol|, "
+          f"rtol {SHARDED_SOL_RTOL}; packets rtol {SHARDED_PACKET_RTOL}, atol "
+          f"{SHARDED_PACKET_ATOL}) [{card}]", flush=True)
+    if two_launches or two_case.rp.gather != "taps":
+        raise AssertionError("9d: twolayer --sharded with taps launched a table kernel")
+    return dict(rsw_launches=rsw_launches)
+
+
+def phase_parallel(card: str, device, replicated_ray_steps_per_s: float) -> dict:
+    """Phase 9 on a mesh of one process over NCCL -> launches and rates."""
+    from juliaraytracingsw_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=device)
+    print(f"phase 9: parallel/ on a mesh of {mesh.size} process over "
+          f"{torch.distributed.get_backend()} ({mesh.device}); more ranks cannot share one "
+          "card under NCCL, so the multi-rank checks are the CPU tests' (gloo ranks)",
+          flush=True)
+    phase_slab_fft(card, mesh)
+    hero9 = phase_hero_sharded(card, mesh, replicated_ray_steps_per_s)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli9 = phase_sharded_cli(card, device, out_dir)
+    print(f"phase 9 done in {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"hero_sharded1": hero9, "cli": cli9}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is false",
@@ -1866,6 +2186,10 @@ def main() -> int:
     steady = phase_steady_raytracing(card)
     phase_new_paths_gpu_vs_cpu(card, device)
     print(f"phase 8 done in {time.perf_counter() - t8:.1f} s", flush=True)
+    # phase 9: parallel/ on a mesh of one process over NCCL; 9b's and 9d's
+    # launches are counted from 0 each
+    par = phase_parallel(card, device, main_run["ray_steps_per_s"])
+    torch.distributed.destroy_process_group()
     for name, got in (("ray_step table", counts), ("ray_attempt table", attempt_counts)):
         for interp in INTERPS:
             if got[interp] == 0:
@@ -1878,7 +2202,10 @@ def main() -> int:
         {"name": f"ray_step_rk4_table_{interp}", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": counts[interp],
          "cli_launches": cli["table_counts"][interp],
-         **({"model_launches": model_launches} if interp == "bilinear" else {}),
+         **({"model_launches": model_launches,
+             "sharded_launches": {"9b hero_sharded1": par["hero_sharded1"]["launches"],
+                                  "9d rsw --sharded": par["cli"]["rsw_launches"]}}
+            if interp == "bilinear" else {}),
          "table_dtype": hero_dtype,
          **tables[interp, hero_dtype], "fwd_bwd_ms": fwd_bwd[interp, hero_dtype]}
         for interp in INTERPS] + [

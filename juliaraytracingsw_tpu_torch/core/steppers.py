@@ -6,7 +6,7 @@
   the host in float64);
 - ``make_ifrk4``: integrating-factor RK4 with ``exp(L dt/2)`` tables;
 - ``make_etdrk4``: Cox-Matthews ETDRK4 with Kassam-Trefethen contour
-  coefficients, for diagonal L;
+  coefficients, for diagonal L (a block L raises);
 - ``make_filtered_ab3`` / ``make_filtered_rk4``: classic AB3 / RK4 on the
   whole right-hand side ``L sol + N``, with an optional spectral filter.
 
@@ -58,6 +58,11 @@ def apply_L(L: torch.Tensor, sol: torch.Tensor) -> torch.Tensor:
     return L * sol
 
 
+def _is_block(L) -> bool:
+    """Is ``L`` a ``(C, C, nl, nkr)`` block operator (not a diagonal one)?"""
+    return L.ndim >= 4 and L.shape[0] == L.shape[1]
+
+
 def expm_tables(L, dt: float):
     """Host float64 precompute of exp(L dt) and exp(2 L dt).
 
@@ -70,7 +75,7 @@ def expm_tables(L, dt: float):
     else:
         device = "cpu"
         Lnp = np.asarray(L)
-    if Lnp.ndim >= 4 and Lnp.shape[0] == Lnp.shape[1]:
+    if _is_block(Lnp):
         # (C, C, nl, nkr) -> (nl, nkr, C, C) for batched expm
         perm = tuple(range(2, Lnp.ndim)) + (0, 1)
         blocks = np.transpose(Lnp.astype(np.complex128), perm)
@@ -202,7 +207,14 @@ def make_etdrk4(
 ):
     """Cox-Matthews ETDRK4 for a diagonal linear operator. The tables take
     L's precision (float64 or complex128 L gives double tables) and stay
-    real where they are real to round-off; they live on L's device."""
+    real where they are real to round-off; they live on L's device. A
+    ``(C, C, nl, nkr)`` block L raises ``ValueError``: its phi-functions
+    are matrix functions, which this scheme does not form."""
+    if _is_block(L_diag):
+        raise ValueError(
+            f"ETDRK4 needs a diagonal linear operator; this model's L is a "
+            f"{tuple(L_diag.shape[:2])} block per mode, shape {tuple(L_diag.shape)} "
+            f"(step it with IFMAB3 or IFRK4)")
     Lnp = L_diag.detach().cpu().numpy()
     double = Lnp.dtype in (np.float64, np.complex128)
 

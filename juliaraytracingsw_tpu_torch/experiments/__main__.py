@@ -43,11 +43,21 @@ The coupled subcommands take ``--birth-death`` (Weibull resampling of
 the ensemble, seeded by ``--seed``) and ``--live N`` (a dashboard,
 ``live.png``/``live.html``, every N frames; needs matplotlib).
 
+``--sharded`` (``rsw``, every ``--model``; ``swqg``; ``twolayer``, with
+``--nlayers``; ``thomasyamada``) runs the flow slab-sharded over a process
+mesh (``parallel/sharded``: the state in kr-column blocks, slab FFTs, the
+interpolation fields gathered to every rank, each rank its block of the
+packets); its checkpoints hold the unsharded state, so they restore at
+any mesh size and in either package, and only rank 0 writes files.
+``--distributed`` first joins the job's processes into one
+``torch.distributed`` group from the scheduler's environment
+(``parallel/launcher.resolve_cluster``: SLURM, mpirun, or
+``JRSW_COORDINATOR``/``JRSW_NUM_PROCESSES``/``JRSW_PROCESS_ID``), one
+process per GPU; without it the mesh is this one process.
+
 ``--platform`` names the torch device (default ``cuda``); without a card
 the run fails and says to pass ``--platform cpu``. ``omega-k-plot`` and
-``b-parameter`` are host analyses (numpy, h5py). ``--sharded`` and
-``--distributed`` exit with a message naming the ROADMAP item that ports
-them.
+``b-parameter`` are host analyses (numpy, h5py).
 """
 from __future__ import annotations
 
@@ -61,20 +71,8 @@ import torch
 
 __all__ = ["build_parser", "run", "main", "Case", "setup_rsw", "setup_swqg",
            "setup_twolayer", "setup_single_wave", "setup_thomasyamada", "SETUPS",
-           "inject", "start_clock", "schedule", "make_driver", "steady_raytracing"]
-
-
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to juliaraytracingsw_tpu_torch yet "
-                      f"(ROADMAP queue 1, {item}); the JAX package's command line "
-                      f"(python -m juliaraytracingsw_tpu.experiments) runs it")
-
-
-# (attribute, flag, item) of the options that wait for their ROADMAP item
-_UNPORTED_OPTIONS = (
-    ("sharded", "--sharded", "item 13"),
-    ("distributed", "--distributed", "item 13"),
-)
+           "inject", "start_clock", "schedule", "make_driver", "steady_raytracing",
+           "make_sharded", "run_sharded", "ShardedRun"]
 
 
 def _add_common(p: argparse.ArgumentParser):
@@ -96,9 +94,14 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--seed", type=int, default=1234)
     _add_platform(p)
     p.add_argument("--distributed", action="store_true",
-                   help="not ported (ROADMAP queue 1, item 13)")
+                   help="join the job's processes (one per GPU) into one "
+                        "torch.distributed group from the scheduler's environment "
+                        "(SLURM, mpirun, or JRSW_COORDINATOR/JRSW_NUM_PROCESSES/"
+                        "JRSW_PROCESS_ID); needs --sharded on more than one process")
     p.add_argument("--sharded", action="store_true",
-                   help="not ported (ROADMAP queue 1, item 13)")
+                   help="run the flow slab-sharded over the process mesh (kr-column "
+                        "state blocks, slab FFTs, gathered ray fields, packets split "
+                        "over the ranks); IF-AB3, fixed-step rays")
     p.add_argument("--checkpoint", default=None,
                    help="write a resumable checkpoint here at the end")
     p.add_argument("--restore", default=None,
@@ -156,17 +159,28 @@ def _device(platform: str) -> torch.device:
     return device
 
 
-def _reject_unported(args):
-    for attr, flag, item in _UNPORTED_OPTIONS:
-        if getattr(args, attr, False):
-            raise _not_ported(flag, item)
+def _init_distributed(args, log_fn: Callable) -> None:
+    """``--distributed``: bring up the job's process group (NCCL on the
+    card, each rank on its own GPU; gloo on the CPU)."""
+    if not getattr(args, "distributed", False):
+        return
+    import torch.distributed as dist
+
+    from ..parallel.launcher import initialize_from_env
+
+    spec = initialize_from_env(device=_device(args.platform))
+    if spec.process_id == 0:
+        log_fn(f"distributed: {spec.source} process {spec.process_id}/{spec.num_processes}")
+    if dist.is_initialized() and dist.get_world_size() > 1 and not args.sharded:
+        raise SystemExit("--distributed over more than one process needs --sharded: "
+                         "only the sharded flow splits the work between the processes")
 
 
-def _setup(args):
+def _setup(args, log_fn: Callable = print):
     from ..core.grid import make_grid
     from ..coupled.driver import derive_dt, derive_nu
 
-    _reject_unported(args)
+    _init_distributed(args, log_fn)
     grid = make_grid(args.nx, Lx=args.L, device=_device(args.platform))
     dt = derive_dt(args.cfltune, args.umax_estimate, grid.dx)
     nu = derive_nu(args.nutune, args.nx, args.nnu, dt)
@@ -225,7 +239,7 @@ def _rsw_diagnostics(rsw):
     }
 
 
-def setup_rsw(args) -> Case:
+def setup_rsw(args, log_fn: Callable = print) -> Case:
     """The ``rsw`` subcommand's model (``--model``), IC, packets and
     diagnostics; sets ``args.dt``."""
     from ..core.spectral import irfft2, rfft2
@@ -233,7 +247,7 @@ def setup_rsw(args) -> Case:
     from ..models import linborg, modified_sw, quadheight, rsw
     from ..rays.packets import lattice_packets
 
-    grid, dt, nu, rng = _setup(args)
+    grid, dt, nu, rng = _setup(args, log_fn)
     args.dt = dt
     f, Cg = args.f_over_cg * args.cg, args.cg
     factory = {"rsw": rsw, "linborg": linborg, "modified": modified_sw,
@@ -272,14 +286,14 @@ def setup_rsw(args) -> Case:
     return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, args.model)
 
 
-def setup_swqg(args) -> Case:
+def setup_swqg(args, log_fn: Callable = print) -> Case:
     """The ``swqg`` subcommand's model, IC, packets and diagnostics; sets
     ``args.dt``."""
     from ..coupled.initial_conditions import random_band_psih
     from ..models import swqg
     from ..rays.packets import lattice_packets
 
-    grid, dt, nu, rng = _setup(args)
+    grid, dt, nu, rng = _setup(args, log_fn)
     args.dt = dt
     f, Cg = args.f, args.cg
     model = swqg.make_model(grid, nu=nu, nnu=args.nnu, f=f, Cg=Cg)
@@ -374,7 +388,7 @@ def setup_twolayer(args, log_fn: Callable = print) -> Case:
     from ..models import twolayerqg
     from ..rays.packets import lattice_packets
 
-    grid, dt, nu, rng = _setup(args)
+    grid, dt, nu, rng = _setup(args, log_fn)
     args.dt = dt
     f, Cg = args.f, args.cg
     if args.nlayers > 2:
@@ -454,7 +468,7 @@ def setup_thomasyamada(args, log_fn: Callable = print):
     main dt."""
     from ..coupled.ty_driver import TYRunConfig
 
-    _reject_unported(args)
+    _init_distributed(args, log_fn)
     device = _device(args.platform)
     stepper = args.stepper if args.stepper != "IFMAB3" else "ETDRK4"
     dt = args.ty_dt
@@ -534,7 +548,10 @@ def start_clock(case: Case, device):
 
 def _run_coupled(args, case: Case, log_fn: Callable, after_spinup: Callable | None = None):
     snap_w, pkt_w = _writers(args, case.base)
-    drv = make_driver(args, case, snap_w, pkt_w, log_fn)
+    try:
+        drv = make_driver(args, case, snap_w, pkt_w, log_fn)
+    except ValueError as exc:   # a configuration the driver refuses (--stepper ETDRK4 of a block L)
+        raise SystemExit(str(exc)) from exc
     drv.init(case.sol0, case.packets, clock=start_clock(case, case.sol0.device))
     if args.restore:
         drv.restore(args.restore)
@@ -551,38 +568,256 @@ def _run_coupled(args, case: Case, log_fn: Callable, after_spinup: Callable | No
     return drv
 
 
+class ShardedRun(NamedTuple):
+    """A finished ``--sharded`` run: the sharded model, the rank's state
+    block, clock and AB3 history, the rank's packets and the diagnostics
+    (every rank holds the same series)."""
+
+    sh: object
+    sol: torch.Tensor
+    clock: object
+    state: object
+    packets: object
+    diag_times: list
+    diag_series: dict
+
+
+class _NullWriter:
+    """The writer of a rank other than 0: takes every write, keeps nothing."""
+
+    def write(self, *args, **kw):
+        pass
+
+    write_frame = write_packets = write
+
+    def flush(self):
+        pass
+
+    close = flush
+
+
+# the sharded class of each model of a coupled subcommand (Model.name)
+_SHARDED = {"rsw": ("sharded_rsw", "ShardedRSW"),
+            "linborg_sw": ("sharded_rsw", "ShardedLinborg"),
+            "modified_sw": ("sharded_rsw", "ShardedModifiedSW"),
+            "quadheight_sw": ("sharded_rsw", "ShardedQuadHeight"),
+            "swqg": ("sharded", "ShardedSWQG"),
+            "twolayerqg": ("sharded", "ShardedTwoLayerQG"),
+            "multilayerqg": ("sharded", "ShardedMultiLayerQG")}
+
+
+def make_sharded(args, case: Case, mesh):
+    """The sharded counterpart of ``case.model`` on ``mesh`` (a two-layer
+    model advects by the baroclinic streamfunction with ``--baroclinic``)."""
+    import importlib
+
+    module, name = _SHARDED[case.model.name]
+    cls = getattr(importlib.import_module(f"..parallel.{module}", __package__), name)
+    kw = {}
+    if case.model.name == "twolayerqg":
+        kw["advect"] = "baroclinic" if args.baroclinic else "barotropic"
+    return cls(case.model.grid, case.model.params, mesh, dt=args.dt, interp=args.interp, **kw)
+
+
+def _check_sharded_options(args) -> None:
+    """The options a sharded run does not take exit before it starts."""
+    from ..parallel.sharded import SHARDED_RAY_METHODS
+
+    refused = [flag for flag, on in (("--frozen-flow", args.frozen_flow),
+                                     ("--birth-death", args.birth_death),
+                                     ("--live", args.live), ("--use-filter", args.use_filter),
+                                     (f"--stepper {args.stepper}",
+                                      args.stepper not in ("IFMAB3", "ETDAB3"))) if on]
+    if refused:
+        raise SystemExit(f"--sharded does not support {' '.join(refused)} (the sharded "
+                         "flow steps IF-AB3 without a filter; use the replicated driver)")
+    if args.ray_method not in SHARDED_RAY_METHODS:
+        raise SystemExit(f"--sharded supports --ray-method {'|'.join(SHARDED_RAY_METHODS)}")
+
+
+def run_sharded(args, case: Case, sh, snapshot_writer=None, packet_writer=None,
+                log_fn: Callable = print) -> ShardedRun:
+    """The ``--sharded`` host loop on ``sh`` (``make_sharded``): spin-up in
+    chunks of 500 steps, then frames of the sharded coupled frame, each
+    with the NaN guard, diagnostics of the gathered state, the packet
+    telemetry and a snapshot; ``--restore``/``--checkpoint`` read and write
+    the unsharded tree ``{sol, clock, N1, N2, packets}``, which restores at
+    any mesh size and in either package.
+
+    Every rank calls this with writers or every rank without (writes gather
+    over the mesh); only rank 0's writers and log see anything. The NaN
+    guard reduces a finite flag over the mesh first, so every rank raises
+    together."""
+    import time
+
+    from ..core.steppers import AB3State, zero_clock
+    from ..io.checkpoint import load_checkpoint, save_checkpoint
+    from ..parallel.mesh import (all_gather, all_reduce_finite, gather_packets,
+                                 shard_packets)
+    from ..rays.raytrace import sample_gradients, sample_velocity
+
+    mesh = sh.mesh
+    lead = mesh.rank == 0
+    log = log_fn if lead else (lambda line: None)
+    model, rp = case.model, case.rp
+    grid, dt = model.grid, args.dt
+    if snapshot_writer is not None:
+        from ..io.output import save_problem
+
+        save_problem(snapshot_writer, grid, model.params, dt)
+    if packet_writer is not None:
+        for key, value in (("params/f0", rp.f), ("params/Cg", rp.Cg), ("params/dt", dt),
+                           ("params/N", case.packets.n),
+                           ("params/omega_sign", case.packets.sign)):
+            packet_writer.write(key, value)
+
+    init_fn, step_fn = sh.stepper()
+    sol = sh.shard_solution(case.sol0)
+    clock = start_clock(case, mesh.device) or zero_clock(device=mesh.device)
+    state = init_fn(sol)
+    pk = shard_packets(case.packets, mesh)
+
+    def ckpt_tree():
+        return {"sol": sh.unshard(sol), "clock": clock, "N1": sh.unshard(state.N1),
+                "N2": sh.unshard(state.N2), "packets": gather_packets(pk, mesh)}
+
+    if args.restore:
+        tree = load_checkpoint(args.restore, ckpt_tree())
+        sol, clock = sh.shard_solution(tree["sol"]), tree["clock"]
+        state = AB3State(sh.shard_solution(tree["N1"]), sh.shard_solution(tree["N2"]))
+        pk = shard_packets(tree["packets"], mesh)
+        log(f"restored {args.restore}: t={float(clock.t):.3f} step={clock.step}")
+    t_wall = time.time()
+
+    def check_nan(where):
+        if not all_reduce_finite(mesh, sol):
+            for w in (snapshot_writer, packet_writer):
+                if w is not None:
+                    w.flush()
+            raise FloatingPointError(f"solution is NaN/Inf at {where}")
+
+    spinup_steps, frames, steps_per_frame = schedule(args)
+    done = 0
+    while done < spinup_steps:
+        n = min(500, spinup_steps - done)
+        for _ in range(n):
+            sol, clock, state = step_fn(sol, clock, state)
+        done += n
+        check_nan("spinup")
+
+    frame = sh.make_coupled_frame(rp, steps_per_frame, ray_substeps=args.ray_substeps,
+                                  ray_method=args.ray_method, k_cutoff=100.0 * case.f / case.Cg,
+                                  k0=_k0(args, case.f, case.Cg))
+    diag_times, diag_series = [], {name: [] for name in case.diagnostics}
+    for i in range(frames):
+        sol, clock, state, pk = frame(sol, clock, state, pk)
+        check_nan(f"frame {i}")
+        sol_full = sh.unshard(sol)
+        fields = sh.fields(sol)
+        diag_times.append(float(clock.t))
+        for name, fn in case.diagnostics.items():
+            diag_series[name].append(_host(fn(sol_full, grid, model.params)))
+        if packet_writer is not None:
+            rows = [pk.x, pk.y, pk.k, pk.l, *sample_velocity(pk, fields, rp),
+                    *sample_gradients(pk, fields, rp)]
+            host = _host(all_gather(torch.stack(rows), 1, mesh))
+
+            def cols(lo, hi):
+                return np.ascontiguousarray(host[lo:hi].T)
+
+            packet_writer.write_packets(clock.step, float(clock.t), x=cols(0, 2),
+                                        k=cols(2, 4), u=cols(4, 6), g=cols(6, 10))
+        if snapshot_writer is not None:
+            snapshot_writer.write_frame(clock.step, sol=sol_full)
+            snapshot_writer.write(f"snapshots/t/{clock.step}", float(clock.t))
+        umax = float(fields[:2].abs().max())
+        log(f"step: {clock.step:06d}, t: {float(clock.t):.2f}, "
+            f"cfl: {dt * umax / min(grid.dx, grid.dy):.2e}, "
+            f"wall: {(time.time() - t_wall) / 60:.2f} min [sharded x{mesh.size}]")
+    if args.checkpoint:
+        tree = ckpt_tree()
+        if lead:
+            save_checkpoint(args.checkpoint, tree)
+        log(f"checkpoint -> {args.checkpoint}")
+    return ShardedRun(sh, sol, clock, state, pk, diag_times, diag_series)
+
+
+def _run_coupled_sharded(args, case: Case, log_fn: Callable) -> ShardedRun:
+    """``--sharded``: ``run_sharded`` on the process mesh, rank 0 writing
+    the snapshot and packet files and ``diagnostics.h5``."""
+    from ..parallel.mesh import make_mesh
+
+    _check_sharded_options(args)
+    mesh = make_mesh(device=case.model.grid.device)
+    sh = make_sharded(args, case, mesh)
+    writers = _writers(args, case.base) if mesh.rank == 0 else (_NullWriter(), _NullWriter())
+    res = run_sharded(args, case, sh, *writers, log_fn=log_fn)
+    if mesh.rank == 0:
+        import h5py
+
+        with h5py.File(os.path.join(args.out_dir, "diagnostics.h5"), "w") as fh:
+            fh["t"] = np.asarray(res.diag_times)
+            for name, series in res.diag_series.items():
+                fh[name] = np.asarray(series)
+        log_fn(f"done: t={float(res.clock.t):.3f}, {len(res.diag_times)} frames -> "
+               f"{args.out_dir}")
+    for w in writers:
+        w.close()
+    return res
+
+
+def _coupled(args, case: Case, log_fn: Callable):
+    return (_run_coupled_sharded if args.sharded else _run_coupled)(args, case, log_fn)
+
+
+def _refuse_sharded(args, cmd: str) -> None:
+    if getattr(args, "sharded", False):
+        raise SystemExit(f"--sharded runs rsw, swqg, twolayer and thomasyamada, not {cmd}")
+
+
 def cmd_rsw(args, log_fn: Callable = print):
     """RSW turbulence (any ``--model`` variant) + packets."""
-    return _run_coupled(args, setup_rsw(args), log_fn)
+    return _coupled(args, setup_rsw(args, log_fn), log_fn)
 
 
 def cmd_swqg(args, log_fn: Callable = print):
     """SWQG turbulence + packets."""
-    return _run_coupled(args, setup_swqg(args), log_fn)
+    return _coupled(args, setup_swqg(args, log_fn), log_fn)
 
 
 def cmd_twolayer(args, log_fn: Callable = print):
     """Two-layer (or n-layer) QG turbulence + packets."""
-    return _run_coupled(args, setup_twolayer(args, log_fn), log_fn)
+    return _coupled(args, setup_twolayer(args, log_fn), log_fn)
 
 
 def cmd_single_wave(args, log_fn: Callable = print):
     """Spin up RSW turbulence, replace the wave part of the state with one
     enveloped plane wave, and evolve it with the two packets."""
+    _refuse_sharded(args, "single-wave")
     case = setup_single_wave(args)
     return _run_coupled(args, case, log_fn, after_spinup=partial(inject, args, case))
 
 
 def cmd_thomasyamada(args, log_fn: Callable = print):
-    """Two-phase Thomas-Yamada run -> (sol, clock, diagnostics)."""
+    """Two-phase Thomas-Yamada run (``--sharded``: on the process mesh,
+    IF-AB3) -> (sol, clock, diagnostics)."""
     from ..core.grid import make_grid
-    from ..coupled.ty_driver import run_thomasyamada
+    from ..coupled.ty_driver import run_thomasyamada, run_thomasyamada_sharded
     from ..models import thomasyamada
 
-    sol, clock, diags = run_thomasyamada(setup_thomasyamada(args, log_fn))
+    cfg = setup_thomasyamada(args, log_fn)
+    if args.sharded:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(device=cfg.device)
+        if mesh.rank:
+            cfg.log_fn = lambda line: None
+        sol, clock, diags = run_thomasyamada_sharded(cfg, mesh)
+    else:
+        sol, clock, diags = run_thomasyamada(cfg)
     grid = make_grid(args.nx, Lx=args.L, device=sol.device)
     ke, pe = thomasyamada.baroclinic_energy(sol, grid)
-    log_fn(f"done: t={float(clock.t):.3f} baroclinic KE={float(ke):.4g} "
+    cfg.log_fn(f"done: t={float(clock.t):.3f} baroclinic KE={float(ke):.4g} "
            f"PE={float(pe):.4g} wave KE={diags['wave_ke'][-1]:.4g} "
            f"geo KE={diags['geo_ke'][-1]:.4g}")
     return sol, clock, diags
@@ -599,7 +834,8 @@ def cmd_twolayer_simulation(args, log_fn: Callable = print):
     from ..models import twolayerqg
     from ..models.base import build_stepper, run as run_steps
 
-    grid, dt, nu, rng = _setup(args)
+    _refuse_sharded(args, "twolayer-simulation")
+    grid, dt, nu, rng = _setup(args, log_fn)
     model = twolayerqg.make_model(grid, U=args.U, mu=args.mu, nu=nu, nnu=args.nnu,
                                   f0=args.f, Cg=args.cg, drho_rho0=args.drho_rho0)
     psih0 = torch.stack([random_band_psih(grid, rng, kband=tuple(args.Kg), amp=args.ag)
@@ -711,6 +947,7 @@ def cmd_steady_raytracing(args, log_fn: Callable = print):
     """Packets through a frozen snapshot, written to ``packets.%06d.h5``."""
     from ..io.output import SequencedWriter
 
+    _refuse_sharded(args, "steady-raytracing")
     writer = SequencedWriter(os.path.join(args.out_dir, "packets"), args.max_writes)
     return steady_raytracing(args, writer, log_fn)
 
@@ -1199,7 +1436,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run(argv=None, log_fn: Callable = print):
     """Parse ``argv`` and run its subcommand; returns the coupled run's
-    ``CoupledDriver``, the analysis report(s), ``thomasyamada``'s (sol,
+    ``CoupledDriver`` (with ``--sharded``, its ``ShardedRun``), the
+    analysis report(s), ``thomasyamada``'s (sol,
     clock, diagnostics), ``twolayer-simulation``'s file,
     ``steady-raytracing``'s (packets, t), the sweep's rows, omega-k's
     files, omega-k-plot's file or b-parameter's b. Every line the run

@@ -11,6 +11,11 @@ without importing JAX here) as well as this package's tensors;
 ``sim_state_from_numpy`` builds this package's ``SimState`` on a device, in
 single precision (complex64, float32) unless an array is double (complex128,
 float64), which keeps its precision.
+
+``sharded_state_from_numpy`` / ``sharded_state_to_numpy`` carry a sharded
+run's state (``parallel/sharded``): the gathered numpy leaves on one side,
+the rank's blocks on the other, so the same gathered state feeds both
+packages' sharded models.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from .coupled.driver import SimState
 from .rays.packets import Packets
 from .rays.resample import BirthDeathState
 
-__all__ = ["sim_state_to_numpy", "sim_state_from_numpy"]
+__all__ = ["sim_state_to_numpy", "sim_state_from_numpy", "sharded_state_from_numpy",
+           "sharded_state_to_numpy"]
 
 _PACKET_FIELDS = ("x", "y", "k", "l", "sign")
 _BD_FIELDS = ("age", "lifetime", "key", "births")
@@ -84,3 +90,38 @@ def sim_state_from_numpy(d: dict, *, device: torch.device | str = "cuda") -> Sim
         fields=r("fields"),
         bd=bd,
     )
+
+
+def sharded_state_from_numpy(d: dict, sh):
+    """A sharded run's state from numpy (the reference's sharded state
+    once gathered, ``np.asarray`` of each leaf): ``sol``, ``N1``, ``N2``
+    (global ``(C, nl, nkr)``, or channel-less ``(nl, nkr)``), ``clock.t``,
+    ``clock.step`` and the global ``packets.x`` ... ``packets.sign`` ->
+    (the rank's state block, Clock, AB3State, the rank's packets) of the
+    sharded model ``sh`` (``parallel/sharded``), on its mesh's device."""
+    from .parallel.mesh import shard_packets
+
+    device = sh.mesh.device
+
+    def block(key):
+        return sh.shard_solution(np.asarray(d[key], np.complex64))
+
+    clock = Clock(torch.as_tensor(np.asarray(d["clock.t"], np.float32), device=device),
+                  int(d["clock.step"]))
+    packets = Packets(*(torch.as_tensor(np.asarray(d[f"packets.{n}"], np.float32))
+                        for n in _PACKET_FIELDS))
+    return (block("sol"), clock, AB3State(block("N1"), block("N2")),
+            shard_packets(packets, sh.mesh))
+
+
+def sharded_state_to_numpy(sh, sol, clock, state, packets) -> dict:
+    """The inverse of ``sharded_state_from_numpy``: every leaf gathered
+    over ``sh``'s mesh (a collective: every rank calls it) and unsharded."""
+    from .parallel.mesh import gather_packets
+
+    d = {"sol": _np(sh.unshard(sol)), "N1": _np(sh.unshard(state.N1)),
+         "N2": _np(sh.unshard(state.N2)), "clock.t": _np(clock.t),
+         "clock.step": np.asarray(clock.step)}
+    for name, leaf in zip(_PACKET_FIELDS, gather_packets(packets, sh.mesh)):
+        d[f"packets.{name}"] = _np(leaf)
+    return d

@@ -1,4 +1,5 @@
-"""Multi-process orchestration (port of ``parallel/``): the sweep launcher.
-
-The sharded flow, the mesh, the slab FFT and the cluster initialisation
-are not ported yet (ROADMAP queue 1, item 13)."""
+"""Multi-process paths (port of ``parallel/``): the mesh over
+``torch.distributed`` (``mesh``), the slab FFT (``fft``), the slab-sharded
+flow models with their coupled frame (``sharded``, ``sharded_rsw``), the
+cluster and sweep launcher (``launcher``) and the multi-process dry run
+(``dryrun``)."""

@@ -26,7 +26,11 @@ bfloat16 patch tables) with the PyTorch port and prints:
 3. one frame of 5 coupled steps through ``make_coupled_frame`` with the
    RK4 or the adaptive ray method under ``torch.profiler``: device time by
    kernel name, and the device's busy share of the frame's wall time
-   (``--trace DIR`` also writes the Chrome trace there).
+   (``--trace DIR`` also writes the Chrome trace there);
+4. the RK4 frame through the sharded flow on a mesh of one process over
+   NCCL (``parallel/sharded_rsw.ShardedRSW``, hero_sharded1) under
+   ``torch.profiler``: the same, and the host's time in the operators that
+   cost the most of it (the collectives' and the transposes' among them).
 
 Needs a CUDA device.
 """
@@ -168,35 +172,78 @@ def outputs(interp: str, device) -> None:
         print(f"  {name:45s} {host_ms(fn):8.3f} ms")
 
 
-def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:
+def _profile(run_frame, name: str, trace_dir: str | None, host_ops: int = 0) -> None:
+    """One warm-up call of ``run_frame``, then one under ``torch.profiler``:
+    wall and device-busy time, device time by kernel, and (``host_ops``)
+    the operators with the most host time of their own."""
     from torch.profiler import ProfilerActivity, profile
 
+    run_frame()                             # warm up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type.name == "CUDA"]
+    dev_us = sum(e.self_device_time_total for e in events)
+    print(f"  profiled frame: wall {wall_ms:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
+          f"({100 * dev_us / 1e3 / wall_ms:.1f}%), {sum(e.count for e in events)} kernels")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if host_ops:
+        cpu = [e for e in averages if e.device_type.name == "CPU"]
+        print(f"  host: {sum(e.self_cpu_time_total for e in cpu) / 1e3:.2f} ms of operator "
+              f"time of their own; the most:")
+        for e in sorted(cpu, key=lambda e: -e.self_cpu_time_total)[:host_ops]:
+            print(f"  {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        path = os.path.join(trace_dir, f"{name}.json")
+        prof.export_chrome_trace(path)
+        print(f"  chrome trace: {path}")
+
+
+def profiled_frame(interp: str, ray_method: str, device, trace_dir: str | None) -> None:
     grid, model, sol0, rp, psih_fn = make_case(512, interp, "bfloat16", device)
     init, step = build_stepper(model, "IFMAB3", DT)
     frame = make_coupled_frame(model, step, psih_fn, rp, 5, k_cutoff=K_CUTOFF, k0=K0,
                                ray_method=ray_method, ray_opts=HERO_ADAPTIVE
                                if ray_method == "adaptive" else None)
     p = lattice_packets(1024, grid.Lx, grid.Ly, k0=K0, k_ring=True, device=device)
-    sim = SimState(sol0, zero_clock(device=device), init(sol0), p,
-                   fields_from_psih(psih_fn(sol0), grid, interp))
-    sim = frame(sim)                        # warm up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim = frame(sim)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    dev_us = sum(e.self_device_time_total for e in events)
-    print(f"  profiled frame: wall {wall_ms:.2f} ms, device busy {dev_us / 1e3:.2f} ms "
-          f"({100 * dev_us / 1e3 / wall_ms:.1f}%), {sum(e.count for e in events)} kernels")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:20]:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        path = os.path.join(trace_dir, f"hero_{interp}_{ray_method}_frame.json")
-        prof.export_chrome_trace(path)
-        print(f"  chrome trace: {path}")
+    sim = [SimState(sol0, zero_clock(device=device), init(sol0), p,
+                    fields_from_psih(psih_fn(sol0), grid, interp))]
+
+    def run_frame():
+        sim[0] = frame(sim[0])
+
+    _profile(run_frame, f"hero_{interp}_{ray_method}_frame", trace_dir,
+             host_ops=12 if ray_method == "rk4" else 0)
+
+
+def profiled_sharded_frame(interp: str, device, trace_dir: str | None) -> None:
+    from juliaraytracingsw_tpu_torch.parallel.mesh import make_mesh, shard_packets
+    from juliaraytracingsw_tpu_torch.parallel.sharded_rsw import ShardedRSW
+
+    grid, model, sol0, rp, _ = make_case(512, interp, "bfloat16", device)
+    mesh = make_mesh(device=device)
+    sh = ShardedRSW(grid, model.params, mesh, dt=DT, interp=interp)
+    init, _ = sh.stepper()
+    frame = sh.make_coupled_frame(rp, 5, k_cutoff=K_CUTOFF, k0=K0)
+    sol = sh.shard_solution(sol0)
+    state = [(sol, zero_clock(device=device), init(sol),
+              shard_packets(lattice_packets(1024, grid.Lx, grid.Ly, k0=K0, k_ring=True,
+                                            device=device), mesh))]
+
+    def run_frame():
+        state[0] = frame(*state[0])
+
+    calls = dict(mesh.counts)
+    _profile(run_frame, f"hero_sharded1_{interp}_frame", trace_dir, host_ops=12)
+    per_frame = {k: (v - calls.get(k, 0)) // 2 for k, v in mesh.counts.items()}
+    print(f"  collectives a frame of 5 steps: {per_frame}")
+    torch.distributed.destroy_process_group()
 
 
 def main() -> int:
@@ -220,6 +267,9 @@ def main() -> int:
     print(f"hero {args.interp}, one {args.ray_method} frame of 5 coupled steps "
           f"(torch.profiler):")
     profiled_frame(args.interp, args.ray_method, device, args.trace)
+    print(f"hero_sharded1 {args.interp}, one RK4 frame of 5 coupled steps on a mesh of one "
+          f"over NCCL (torch.profiler):")
+    profiled_sharded_frame(args.interp, device, args.trace)
     return 0
 
 

@@ -76,16 +76,16 @@ COUPLED = {
 }
 
 
-@pytest.mark.parametrize("argv,base", list(COUPLED.values()), ids=list(COUPLED))
-def test_cli_matches_jax(tmp_path, argv, base):
-    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
-    jmain(argv + SMALL + ["--out-dir", jdir])
-    drv = tcli.run(argv + SMALL + ["--out-dir", tdir, "--platform", "cpu"], log_fn=_quiet)
-    assert drv.rp.gather == "taps"      # auto: 8 x 4 packets < 32^2 cells
-    assert drv.sim.sol.device.type == "cpu"
+def _assert_outputs_match(jdir, tdir, base, frames=2):
+    """The port's run directory against the JAX command line's: the same
+    files, keys and dtypes; diagnostics to rtol 1e-5, the last snapshot to
+    1e-5 of its largest mode, packets to 1e-4, the rest equal."""
     jd, td = _datasets(jdir), _datasets(tdir)
-    assert sorted(td) == sorted(jd) == sorted(
-        ["diagnostics.h5"] + [f"{b}.{i:06d}.h5" for b in (base, "packets") for i in range(2)])
+    assert sorted(td) == sorted(jd)
+    if frames:
+        assert sorted(jd) == sorted(["diagnostics.h5"] + [f"{b}.{i:06d}.h5"
+                                                          for b in (base, "packets")
+                                                          for i in range(frames)])
     for name in jd:
         assert sorted(td[name]) == sorted(jd[name]), name
         for key, want in jd[name].items():
@@ -97,9 +97,10 @@ def test_cli_matches_jax(tmp_path, argv, base):
     for name, data in jd.items():
         for key, want in data.items():
             got = td[name][key]
-            if key == f"snapshots/sol/{last}":
+            if key.startswith("snapshots/sol/") and (key == f"snapshots/sol/{last}"
+                                                     or frames is None):
                 err = np.abs(got - want).max() / np.abs(want).max()
-                assert err < 1e-5, err
+                assert err < 1e-5, (name, key, err)
             elif key.startswith("p/") and key.split("/")[1] in "xkug":
                 np.testing.assert_allclose(got, want, rtol=0, atol=1e-4, err_msg=key)
             elif key.startswith(("grid/", "params/", "clock/", "p/t/", "snapshots/t/",
@@ -107,6 +108,17 @@ def test_cli_matches_jax(tmp_path, argv, base):
                 np.testing.assert_array_equal(got, want, err_msg=key)
             elif key.startswith("p/mean_age/"):
                 np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=key)
+    return jd
+
+
+@pytest.mark.parametrize("argv,base", list(COUPLED.values()), ids=list(COUPLED))
+def test_cli_matches_jax(tmp_path, argv, base):
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jmain(argv + SMALL + ["--out-dir", jdir])
+    drv = tcli.run(argv + SMALL + ["--out-dir", tdir, "--platform", "cpu"], log_fn=_quiet)
+    assert drv.rp.gather == "taps"      # auto: 8 x 4 packets < 32^2 cells
+    assert drv.sim.sol.device.type == "cpu"
+    jd = _assert_outputs_match(jdir, tdir, base)
     if "--birth-death" in argv:
         births = [v for k, v in jd["packets.000001.h5"].items() if k.startswith("p/births/")]
         assert max(births) > 0 and drv.sim.bd is not None
@@ -164,17 +176,43 @@ def test_analyze_many_runs(tmp_path):
     assert lines[-1].startswith("index: ")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["rsw", "--sharded"], "item 13"),
-    (["swqg", "--distributed"], "item 13"),
-    (["twolayer", "--sharded"], "item 13"),
-    (["thomasyamada", "--sharded"], "item 13"),
+@pytest.mark.parametrize("argv,base", [
+    (["rsw", "--sharded"], "rsw"),
+    (["swqg", "--distributed"], "swqg"),
+    (["twolayer", "--sharded"], "2Lqg"),
+    (["thomasyamada", "--sharded"], "ty"),
+    (["twolayer", "--sharded", "--nlayers", "3"], "3Lqg"),
 ])
-def test_unported_pieces_exit_naming_their_item(tmp_path, argv, item):
-    with pytest.raises(SystemExit, match=f"not ported.*{item}") as exc:
-        tcli.run(argv + ["--platform", "cpu", "--out-dir", str(tmp_path)], log_fn=_quiet)
+def test_unported_pieces_exit_naming_their_item(tmp_path, argv, base):
+    """The pieces that waited for ROADMAP item 13, ported: ``--sharded``
+    (a mesh of one process here, the JAX package's over its 8 virtual
+    devices) and ``--distributed`` (a single process: no process group)
+    write the JAX command line's files, held as a replicated run is."""
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    # 16 packets: the JAX package splits them over its 8 devices
+    small = TY_SMALL[1:] if argv[0] == "thomasyamada" else SMALL + ["--sqrt-npackets", "4"]
+    jmain(argv + small + ["--out-dir", jdir])
+    lines = []
+    tcli.run(argv + small + ["--out-dir", tdir, "--platform", "cpu"], log_fn=lines.append)
+    if "--sharded" in argv:
+        assert any("[sharded x1]" in line for line in lines)
+    _assert_outputs_match(jdir, tdir, base, frames=2 if argv[0] != "thomasyamada" else None)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["rsw", "--sharded", "--birth-death"], "--sharded does not support --birth-death"),
+    (["swqg", "--sharded", "--ray-method", "adaptive"], "--ray-method rk4|dopri5|midpoint"),
+    (["single-wave", "--sharded"], "--sharded runs rsw, swqg, twolayer and thomasyamada"),
+    (["rsw", "--stepper", "ETDRK4"], "ETDRK4 needs a diagonal linear operator"),
+    (["twolayer", "--stepper", "ETDRK4"], "ETDRK4 needs a diagonal linear operator"),
+])
+def test_refused_configurations_exit_with_their_reason(tmp_path, argv, message):
+    """What the port refuses exits with its reason (the reference's
+    ``run`` raises on ETDRK4 with a block L)."""
+    with pytest.raises(SystemExit, match=message.replace("|", "\\|")) as exc:
+        tcli.run(argv + SMALL + ["--platform", "cpu", "--out-dir", str(tmp_path)],
+                 log_fn=_quiet)
     assert exc.value.code not in (0, None)
-    assert not os.listdir(tmp_path)
 
 
 def test_no_card_names_platform_cpu(tmp_path, monkeypatch):
@@ -402,7 +440,7 @@ def test_sweep_reports_a_failed_task(tmp_path):
 def test_sweep_launcher_rows_and_processes(tmp_path):
     """``parallel/launcher``: the row a job array's task picks, and
     ``launch_sweep`` running one process per row with its options, index
-    and log; the cluster half raises naming its ROADMAP item."""
+    and log; the cluster half resolves as the reference's does."""
     import sys
 
     from juliaraytracingsw_tpu.parallel import launcher as jl
@@ -424,6 +462,9 @@ def test_sweep_launcher_rows_and_processes(tmp_path):
     rcs = tl.launch_sweep([sys.executable, "-c", "import sys; sys.exit(len(sys.argv))"],
                           rows[:1], str(tmp_path / "b"), out_flag=None)
     assert rcs == [3] and (tmp_path / "b" / "run000.log").exists()
-    for fn in (tl.resolve_cluster, tl.initialize_from_env):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn({})
+    # the cluster half: the reference's spec for each scheduler, and a
+    # single process brings up nothing
+    for env in ({}, {"SLURM_PROCID": "1", "SLURM_NTASKS": "2", "SLURM_JOB_NODELIST": "n[1-2]"},
+                {"JRSW_NUM_PROCESSES": "3", "JRSW_PROCESS_ID": "2", "JRSW_COORDINATOR": "h:1"}):
+        assert vars(tl.resolve_cluster(env)) == vars(jl.resolve_cluster(env))
+    assert tl.initialize_from_env({}).source == "single"

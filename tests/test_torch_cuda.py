@@ -706,3 +706,77 @@ def test_birth_death_refuses_mixed_dtypes(cuda_device):
         bd.birth_death(*p, st[0].double(), *st[1:], 1.0, **consts)
     with pytest.raises(ValueError, match="uint32"):
         bd.birth_death(*p, st[0], st[1], st[2].to(torch.int64), st[3], 1.0, **consts)
+
+
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A mesh of one process over NCCL, its process group destroyed after
+    the test."""
+    import torch.distributed as dist
+
+    from juliaraytracingsw_tpu_torch.parallel.mesh import make_mesh
+
+    yield make_mesh(device="cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_mesh_of_one_slab_fft(nccl_mesh, cuda_device):
+    """A mesh of one process over NCCL (``parallel/mesh.make_mesh``): the
+    slab FFT's transposes go through NCCL's ``all_to_all_single`` and the
+    transform agrees with ``torch.fft`` on the card; the gather of a
+    complex block goes through its float view."""
+    import torch.distributed as dist
+
+    from juliaraytracingsw_tpu_torch.parallel.fft import padded_nkr, slab_irfft2, slab_rfft2
+    from juliaraytracingsw_tpu_torch.parallel.mesh import all_gather
+
+    mesh = nccl_mesh
+    assert dist.get_backend() == "nccl" and mesh.size == 1 and mesh.device.type == "cuda"
+    field = torch.randn(7, 128, 128, device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(0))
+    spec = slab_rfft2(field, mesh)
+    assert spec.shape == (7, 128, padded_nkr(128, 1))
+    ref = torch.fft.rfft2(field)
+    assert float((spec - ref).abs().max() / ref.abs().max()) < 1e-5
+    assert float((slab_irfft2(spec, 128, mesh) - field).abs().max()) < 1e-5
+    assert torch.equal(all_gather(spec, -1, mesh), spec)
+    assert mesh.counts["all_to_all"] == 2
+
+
+@pytest.mark.cuda
+def test_sharded_frame_is_bit_equal_across_runs(nccl_mesh, cuda_device):
+    """The sharded coupled frame on a mesh of one (NCCL) is deterministic:
+    two runs from the same state give bit-equal state and packets, each
+    with one table-kernel launch per flow step."""
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import band_geo_wave_ic
+    from juliaraytracingsw_tpu_torch.models import rsw
+    from juliaraytracingsw_tpu_torch.parallel.mesh import shard_packets
+    from juliaraytracingsw_tpu_torch.parallel.sharded_rsw import ShardedRSW
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+
+    g = make_grid(128, device=cuda_device)
+    model = rsw.make_model(g, nu=1e-12, nnu=4, f=3.0, Cg=1.0)
+    sol0 = band_geo_wave_ic(g, np.random.default_rng(1), Kg=(10, 13), Kw=(0, 5), ag=0.5,
+                            aw=0.05, f=3.0, Cg=1.0)
+    mesh = nccl_mesh
+    sh = ShardedRSW(g, model.params, mesh, dt=1e-3)
+    rp = RayParams(f=3.0, Cg=1.0, x0=float(g.x[0]), y0=float(g.y[0]), dx=g.dx, dy=g.dy,
+                   table_dtype="bfloat16")
+    k0 = float(np.sqrt(3.0) * 3.0)
+    packets = shard_packets(lattice_packets(64, g.Lx, g.Ly, k0=k0, k_ring=True,
+                                            device=cuda_device), mesh)
+    init, _ = sh.stepper()
+    runs = []
+    for _ in range(2):
+        ray_step.reset_launches()
+        frame = sh.make_coupled_frame(rp, 3, k_cutoff=300.0, k0=k0)
+        sol = sh.shard_solution(sol0)
+        runs.append(frame(sol, zero_clock(device=cuda_device), init(sol), packets))
+        torch.cuda.synchronize()
+        assert ray_step.table_launches["bilinear"] == 3
+    (sa, _, _, pa), (sb, _, _, pb) = runs
+    assert torch.equal(sa, sb) and all(torch.equal(a, b) for a, b in zip(pa, pb))
+    assert float((pa.x - packets.x).abs().max()) > 1e-4

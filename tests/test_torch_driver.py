@@ -283,15 +283,36 @@ def test_interop_carries_a_one_step_stepper_state():
     _assert_states_match(dt_.sim, dj.sim)
 
 
-@pytest.mark.parametrize("name,item", [
-    ("run_thomasyamada_sharded", "item 13"),
+@pytest.mark.parametrize("name,restart", [
+    ("run_thomasyamada_sharded", False),
+    ("run_thomasyamada_sharded", True),
 ])
-def test_driver_unported_options_raise(name, item):
-    """The drivers' paths still to port raise naming their ROADMAP item."""
+def test_driver_unported_options_raise(tmp_path, name, restart):
+    """The drivers' last path, ported: the sharded Thomas-Yamada run (on a
+    mesh of one process), from the seeded IC or restarted from a finished
+    run's snapshots, against the JAX package's sharded driver on a mesh
+    of 2: the final state and the diagnostics to 1e-5 relative."""
+    from juliaraytracingsw_tpu.coupled import ty_driver as jty_driver
+    from juliaraytracingsw_tpu.parallel.mesh import make_mesh as jmake_mesh
     from juliaraytracingsw_tpu_torch.coupled import ty_driver
+    from juliaraytracingsw_tpu_torch.parallel.mesh import make_mesh
 
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(ty_driver, name)(ty_driver.TYRunConfig(device="cpu"))
+    kw = dict(nx=32, nu=1e-10, nnu=4, startup_dt=2e-3, startup_nsteps=10, startup_nsubs=5,
+              dt=1e-3, nsteps=10, nsubs=5, at=0.05, ag=0.05, aw=0.02, log_fn=lambda *a: None)
+    if restart:
+        first = jty_driver.TYRunConfig(out_dir=str(tmp_path / "first"), **kw)
+        jty_driver.run_thomasyamada(first)
+        kw.update(restart_file=os.path.join(first.out_dir, "ty"), restart_frame=15)
+    sol_j, clock_j, diags_j = getattr(jty_driver, name)(
+        jty_driver.TYRunConfig(out_dir=str(tmp_path / "jax"), **kw), jmake_mesh(2))
+    sol_t, clock_t, diags_t = getattr(ty_driver, name)(
+        ty_driver.TYRunConfig(out_dir=str(tmp_path / "torch"), device="cpu", **kw),
+        make_mesh(device="cpu"))
+    assert clock_t.step == int(clock_j.step) == 20
+    want = np.asarray(sol_j)
+    assert np.abs(sol_t.numpy() - want).max() < 1e-5 * np.abs(want).max()
+    for key, series in diags_j.items():
+        np.testing.assert_allclose(diags_t[key], series, rtol=1e-5, err_msg=key)
 
 
 def test_driver_taps_gather_raises():

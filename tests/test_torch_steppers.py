@@ -167,3 +167,32 @@ def test_etdrk4_tables_take_L_precision():
         # tables, float32 rounding with single ones)
         want = torch.exp((L.double() + 0.1) * 1e-2).to(sdtype)
         assert _rel_err(out, want) < (1e-8 if sdtype == torch.complex128 else 1e-6)
+
+
+@pytest.mark.parametrize("name", ["ETDRK4", "FilteredETDRK4"])
+def test_etdrk4_refuses_a_block_operator(name):
+    """ETDRK4's phi-functions are formed for a diagonal L: the two-layer
+    model's (2, 2, nl, nkr) block L is refused where the stepper is built
+    (32^2, q from seed 4, dt 2e-3), as the reference's ``run`` raises for
+    the same model; a diagonal L (Thomas-Yamada) still steps."""
+    from juliaraytracingsw_tpu.models import twolayerqg as j2l
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import random_band_psih
+    from juliaraytracingsw_tpu_torch.models import twolayerqg as t2l
+
+    kw = dict(U=0.3, mu=1e-2, nu=1e-8, nnu=4, f0=3.0, Cg=1.0, drho_rho0=0.2)
+    tg = tmake_grid(32, device="cpu")
+    mt = t2l.make_model(tg, **kw)
+    rng = np.random.default_rng(4)
+    q = t2l.pv_from_streamfunction(torch.stack([random_band_psih(tg, rng) for _ in range(2)]),
+                                   tg, mt.params)
+    with pytest.raises(ValueError, match=r"diagonal linear operator.*\(2, 2\) block"):
+        tbase.build_stepper(mt, name, dt=2e-3)
+    mj = j2l.make_model(jmake_grid(32), **kw)
+    ij, sj = jbase.build_stepper(mj, name, dt=2e-3)
+    qj = jnp.asarray(_np(q))
+    with pytest.raises(TypeError):
+        jbase.run(sj, qj, jstep.zero_clock(), ij(qj), 2)
+    _, mty, sol = _models("ty")
+    it, st = tbase.build_stepper(mty, name, DT)
+    sol = torch.as_tensor(sol)
+    assert st(sol, tstep.zero_clock(device="cpu"), it(sol))[0].shape == sol.shape

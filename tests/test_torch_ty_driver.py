@@ -3,7 +3,8 @@ the eigenbasis-projected initial condition from the same numpy seed, the
 two-phase coarse -> fine run at 32^2 with its files and diagnostics, the
 restart from a finished run's snapshots (of either package), a TY state
 checkpointed by one package and restored by the other, and the sharded
-driver's refusal naming its ROADMAP item.
+driver against both packages' (a mesh of one process here; the
+multi-process runs are ``tests/test_torch_sharded_models.py``'s).
 
 Tolerances: the initial condition to 1e-6 of its largest mode (numpy
 draws bit-equal, then one FFT round trip in each package: measured
@@ -144,6 +145,27 @@ def test_ty_checkpoint_restores_in_either_package(tmp_path):
     assert got_t["state"] == tstep.EmptyState()
 
 
-def test_sharded_driver_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tty_driver.run_thomasyamada_sharded(_cfgs("unused")[1])
+def test_sharded_driver_names_its_item(tmp_path):
+    """The sharded two-phase run (a mesh of one process) against the JAX
+    package's sharded driver on a mesh of 2 (both IF-AB3 whatever the
+    configuration's stepper), and against the port's replicated driver
+    stepping IF-AB3: the same files, diagnostics and final state."""
+    from juliaraytracingsw_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from juliaraytracingsw_tpu_torch.parallel.mesh import make_mesh
+
+    jcfg, tcfg = _cfgs(str(tmp_path / "sharded"))
+    sol_j, clock_j, diags_j = jty_driver.run_thomasyamada_sharded(jcfg, jmake_mesh(2))
+    sol_t, clock_t, diags_t = tty_driver.run_thomasyamada_sharded(
+        tcfg, make_mesh(device="cpu"))
+    assert clock_t.step == int(clock_j.step) == 40 and sol_t.shape == (4, 32, 17)
+    assert _rel_err(sol_t, sol_j) < RUN_RTOL
+    for key, want in diags_j.items():
+        np.testing.assert_allclose(diags_t[key], want, rtol=RUN_RTOL, err_msg=key)
+    jf, tf = _files(jcfg.out_dir), _files(tcfg.out_dir)
+    assert sorted(tf) == sorted(jf) == ["diagnostics.h5", "startup.000000.h5", "ty.000000.h5"]
+    for name, data in jf.items():
+        assert sorted(tf[name]) == sorted(data), name
+    _, rcfg = _cfgs(str(tmp_path / "replicated"), stepper="IFMAB3")
+    sol_r, _, diags_r = tty_driver.run_thomasyamada(rcfg)
+    assert _rel_err(sol_t, sol_r) < RUN_RTOL
+    np.testing.assert_allclose(diags_t["wave_ke"], diags_r["wave_ke"], rtol=RUN_RTOL)
