@@ -21,9 +21,16 @@
 Frames are Python loops that enqueue device work; the host waits on the
 device once per frame, in the NaN guard, and again where a frame's
 outputs go to the host: one copy of the packet telemetry, one of each
-snapshot, one of each diagnostic. Everything in a frame is
-differentiable but the adaptive integrator's 'while' loop and its fused
-attempt, which are forward only, as in the reference.
+snapshot, one of each diagnostic, and the log line's two scalars. Every
+such wait is counted by site in ``utils/observability.waits``. Under a
+running ``torch.profiler`` each stage is a span (``utils/observability.span``):
+``frame.coupled``/``frame.flow`` around a frame, ``flow.step``,
+``rays.fields``, ``rays.table``, ``rays.step`` or ``rays.adaptive``,
+``rays.reset``, ``rays.birth_death`` inside it, and ``driver.nan_guard``,
+``driver.diagnostics``, ``driver.outputs``, ``driver.live``,
+``driver.log`` after it, each wait a span ``wait.<site>``. Everything in
+a frame is differentiable but the adaptive integrator's 'while' loop and
+its fused attempt, which are forward only, as in the reference.
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_fro
 from ..rays.prng import prng_key
 from ..rays.resample import (BirthDeathState, init_birth_death, k_cutoff_reset,
                              weibull_birth_death)
+from ..utils.observability import span, wait
 
 __all__ = [
     "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
@@ -149,42 +157,59 @@ def make_coupled_frame(
             clock = Clock(clock.t + dt, clock.step + 1)
             fields, T_new = fields_old, T_old
         else:
-            sol, clock, sstate = step_fn(sol, clock, sstate)
-            fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
-            T_new = build_patch_table(fields, rp.interp) if use_patch else None
+            with span("flow.step"):
+                sol, clock, sstate = step_fn(sol, clock, sstate)
+            with span("rays.fields"):
+                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+            T_new = None
+            if use_patch:
+                with span("rays.table"):
+                    T_new = build_patch_table(fields, rp.interp)
         if adaptive:
-            packets, info = raytrace_adaptive(packets, fields_old, fields, t0, clock.t, rp,
-                                              **ray_opts)
+            with span("rays.adaptive"):
+                packets, info = raytrace_adaptive(packets, fields_old, fields, t0, clock.t, rp,
+                                                  **ray_opts)
         elif use_patch:
-            packets = raytrace_tables_fb(packets, make_pair_table(T_old, T_new, rp.table_dtype),
-                                         fields_old, fields, t0, clock.t, rp, ny, nx,
-                                         nsubsteps=ray_substeps, method=ray_method)
+            with span("rays.table"):
+                T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
+            with span("rays.step"):
+                packets = raytrace_tables_fb(packets, T_pair, fields_old, fields, t0, clock.t,
+                                             rp, ny, nx, nsubsteps=ray_substeps,
+                                             method=ray_method)
+            del T_pair    # freed once the ray step has read it, before the reset allocates
         else:
-            packets = raytrace(packets, fields_old, fields, t0, clock.t, rp,
-                               nsubsteps=ray_substeps, method=ray_method)
+            with span("rays.step"):
+                packets = raytrace(packets, fields_old, fields, t0, clock.t, rp,
+                                   nsubsteps=ray_substeps, method=ray_method)
         if k_cutoff is not None:
-            packets = k_cutoff_reset(packets, k_cutoff, k0)
+            with span("rays.reset"):
+                packets = k_cutoff_reset(packets, k_cutoff, k0)
         if birth_death is not None:
-            packets, bd, _ = weibull_birth_death(
-                packets, bd, clock.t - t0, grid.Lx, grid.Ly, k0,
-                k_shape=birth_death.get("k_shape", 1.5), lam=birth_death.get("lam", 10.0),
-                x0=rp.x0, y0=rp.y0)
+            with span("rays.birth_death"):
+                packets, bd, _ = weibull_birth_death(
+                    packets, bd, clock.t - t0, grid.Lx, grid.Ly, k0,
+                    k_shape=birth_death.get("k_shape", 1.5), lam=birth_death.get("lam", 10.0),
+                    x0=rp.x0, y0=rp.y0)
         return (sol, clock, sstate, packets, fields, T_new, bd), info
 
     def frame(sim: SimState) -> SimState:
-        T0 = build_patch_table(sim.fields, rp.interp) if use_patch else None
         if birth_death is not None and sim.bd is None:
             raise ValueError("birth_death needs SimState.bd (rays/resample.init_birth_death)")
-        carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0, sim.bd)
-        for _ in range(flow_steps):
-            if remat:
-                carry, info = checkpoint(one, *carry, use_reentrant=False)
-            else:
-                carry, info = one(*carry)
-            if info is not None and ray_info_fn is not None:
-                ray_info_fn(info)
-        sol, clock, sstate, packets, fields, _, bd = carry
-        return SimState(sol, clock, sstate, packets, fields, bd)
+        with span("frame.coupled"):
+            T0 = None
+            if use_patch:
+                with span("rays.table"):
+                    T0 = build_patch_table(sim.fields, rp.interp)
+            carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0, sim.bd)
+            for _ in range(flow_steps):
+                if remat:
+                    carry, info = checkpoint(one, *carry, use_reentrant=False)
+                else:
+                    carry, info = one(*carry)
+                if info is not None and ray_info_fn is not None:
+                    ray_info_fn(info)
+            sol, clock, sstate, packets, fields, _, bd = carry
+            return SimState(sol, clock, sstate, packets, fields, bd)
 
     return frame
 
@@ -194,11 +219,14 @@ def make_flow_frame(model: Model, step_fn, psih_fn, rp: RayParams, flow_steps: i
     grid = model.grid
 
     def frame(sim: SimState) -> SimState:
-        sol, clock, sstate = sim.sol, sim.clock, sim.stepper_state
-        for _ in range(flow_steps):
-            sol, clock, sstate = step_fn(sol, clock, sstate)
-        fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
-        return SimState(sol, clock, sstate, sim.packets, fields, sim.bd)
+        with span("frame.flow"):
+            sol, clock, sstate = sim.sol, sim.clock, sim.stepper_state
+            for _ in range(flow_steps):
+                with span("flow.step"):
+                    sol, clock, sstate = step_fn(sol, clock, sstate)
+            with span("rays.fields"):
+                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+            return SimState(sol, clock, sstate, sim.packets, fields, sim.bd)
 
     return frame
 
@@ -282,7 +310,8 @@ class CoupledDriver:
     # --- lifecycle -----------------------------------------------------------
     def init(self, sol0: torch.Tensor, packets: Packets, clock: Clock | None = None):
         grid = self.model.grid
-        fields = fields_from_psih(self.psih_fn(sol0), grid, self.rp.interp)
+        with span("rays.fields"):
+            fields = fields_from_psih(self.psih_fn(sol0), grid, self.rp.interp)
         bd = None
         if self.birth_death:
             bd = init_birth_death(prng_key(self.bd_seed, device=sol0.device), packets.n,
@@ -349,11 +378,11 @@ class CoupledDriver:
             self._record_diagnostics(i)
             self._write_packet_frame()
             if self.live is not None:
-                self.live.update(self.sim, self.model.grid, self.diag_times, self.diag_series)
+                with span("driver.live"):
+                    self.live.update(self.sim, self.model.grid, self.diag_times,
+                                     self.diag_series)
             if self.snapshot_writer is not None and i % snapshot_every == 0:
-                step = self.sim.clock.step
-                self.snapshot_writer.write_frame(step, sol=self.sim.sol)
-                self.snapshot_writer.write(f"snapshots/t/{step}", float(self.sim.clock.t))
+                self._write_snapshot()
             if i % self.log_every_frames == 0:
                 self._log(i)
         self.flush()
@@ -361,52 +390,87 @@ class CoupledDriver:
 
     # --- helpers -------------------------------------------------------------
     def _check_nan(self, where: str):
-        if not bool(torch.isfinite(self.sim.sol.abs().max())):
-            self.flush()
-            raise FloatingPointError(
-                f"solution is NaN/Inf at {where} "
-                f"(t={float(self.sim.clock.t):.3f}) — aborting")
+        with span("driver.nan_guard"):
+            finite = torch.isfinite(self.sim.sol.abs().max())
+            with wait("driver.nan_guard"):
+                finite = bool(finite)
+            if not finite:
+                self.flush()
+                with wait("driver.nan_guard"):
+                    t = float(self.sim.clock.t)
+                raise FloatingPointError(
+                    f"solution is NaN/Inf at {where} (t={t:.3f}) — aborting")
 
     def _record_diagnostics(self, i: int):
         if not self.diagnostics or i % self.diag_every_frames:
             return
-        self.diag_times.append(float(self.sim.clock.t))
-        for name, fn in self.diagnostics.items():
-            value = fn(self.sim.sol, self.model.grid, self.model.params)
-            self.diag_series[name].append(value.detach().cpu().numpy())
+        with span("driver.diagnostics"):
+            with wait("driver.diagnostics"):
+                self.diag_times.append(float(self.sim.clock.t))
+            for name, fn in self.diagnostics.items():
+                value = fn(self.sim.sol, self.model.grid, self.model.params).detach()
+                with wait("driver.diagnostics"):
+                    value = value.cpu()
+                self.diag_series[name].append(value.numpy())
 
     def _write_packet_frame(self):
         """One frame of packet telemetry, (N, 2) float32 arrays x, k, u and
         (N, 4) g = (ux, uy, vx, vy), copied to the host in one transfer."""
         if self.packet_writer is None:
             return
-        sim = self.sim
-        p = sim.packets
-        rows = [p.x, p.y, p.k, p.l, *sample_velocity(p, sim.fields, self.rp)]
-        if self.write_gradients:
-            rows += sample_gradients(p, sim.fields, self.rp)
-        host = torch.stack(rows).cpu().numpy()
+        with span("driver.outputs"):
+            sim = self.sim
+            p = sim.packets
+            rows = [p.x, p.y, p.k, p.l, *sample_velocity(p, sim.fields, self.rp)]
+            if self.write_gradients:
+                rows += sample_gradients(p, sim.fields, self.rp)
+            rows = torch.stack(rows)
+            with wait("driver.outputs"):
+                host = rows.cpu().numpy()
+            with wait("driver.outputs"):
+                t = float(sim.clock.t)
 
-        def cols(lo, hi):
-            return np.ascontiguousarray(host[lo:hi].T)
+            def cols(lo, hi):
+                return np.ascontiguousarray(host[lo:hi].T)
 
-        self.packet_writer.write_packets(
-            sim.clock.step, float(sim.clock.t), x=cols(0, 2), k=cols(2, 4), u=cols(4, 6),
-            g=cols(6, 10) if self.write_gradients else None)
-        if sim.bd is not None:
-            # population telemetry: cumulative rebirths and the mean age
-            step = sim.clock.step
-            self.packet_writer.write(f"p/births/{step}", int(sim.bd.births))
-            self.packet_writer.write(f"p/mean_age/{step}", float(sim.bd.age.mean()))
+            self.packet_writer.write_packets(
+                sim.clock.step, t, x=cols(0, 2), k=cols(2, 4), u=cols(4, 6),
+                g=cols(6, 10) if self.write_gradients else None)
+            if sim.bd is not None:
+                # population telemetry: cumulative rebirths and the mean age
+                step = sim.clock.step
+                with wait("driver.outputs"):
+                    births = int(sim.bd.births)
+                mean_age = sim.bd.age.mean()
+                with wait("driver.outputs"):
+                    mean_age = float(mean_age)
+                self.packet_writer.write(f"p/births/{step}", births)
+                self.packet_writer.write(f"p/mean_age/{step}", mean_age)
+
+    def _write_snapshot(self):
+        """The solution and its time as one snapshot frame."""
+        with span("driver.outputs"):
+            step = self.sim.clock.step
+            with wait("driver.outputs"):
+                sol = self.sim.sol.cpu()
+            with wait("driver.outputs"):
+                t = float(self.sim.clock.t)
+            self.snapshot_writer.write_frame(step, sol=sol)
+            self.snapshot_writer.write(f"snapshots/t/{step}", t)
 
     def _log(self, i: int):
         sim = self.sim
-        umax = float(sim.fields[:2].abs().max())
-        cfl = self.dt * umax / min(self.model.grid.dx, self.model.grid.dy)
-        self.log_fn(
-            f"step: {sim.clock.step:06d}, t: {float(sim.clock.t):.2f}, "
-            f"cfl: {cfl:.2e}, wall: {(time.time() - self._start_wall) / 60:.2f} min"
-        )
+        with span("driver.log"):
+            umax = sim.fields[:2].abs().max()
+            with wait("driver.log"):
+                umax = float(umax)
+            with wait("driver.log"):
+                t = float(sim.clock.t)
+            cfl = self.dt * umax / min(self.model.grid.dx, self.model.grid.dy)
+            self.log_fn(
+                f"step: {sim.clock.step:06d}, t: {t:.2f}, "
+                f"cfl: {cfl:.2e}, wall: {(time.time() - self._start_wall) / 60:.2f} min"
+            )
 
     def save_diagnostics(self, path: str):
         import h5py

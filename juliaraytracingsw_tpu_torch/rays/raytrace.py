@@ -55,6 +55,7 @@ import torch
 
 from ..core.spectral import irfft2, spectral_gradients
 from ..ops.ray_step import recompute_vjp, table_attempt, table_substep
+from ..utils import observability
 from .dispersion import group_velocity
 from .interp import bspline_prefilter_mask, interpolate
 from .packets import Packets
@@ -368,7 +369,12 @@ def _midpoint_step(p: Packets, sample, a0, da, h, rp: RayParams) -> Packets:
     with torch.no_grad():
         fz = tuple(a - b for a, b in zip(z, gz))
         i = 0
-        while i < rp.midpoint_maxit and bool(resid(fz, z) > 1.0):
+        while i < rp.midpoint_maxit:
+            unconverged = resid(fz, z) > 1.0
+            with observability.wait("rays.midpoint"):
+                unconverged = bool(unconverged)
+            if not unconverged:
+                break
             z = tuple(a - b for a, b in zip(z, fz))
             fz = tuple(a - b for a, b in zip(z, G(z)))
             i += 1
@@ -596,7 +602,10 @@ def raytrace_adaptive(
     ``loop='scan'`` runs exactly ``max_steps`` attempt slots, the finished
     ones masked, and never waits on the device; ``loop='while'`` stops once
     the clock reaches ``t1 - eps`` and waits on the device for that test
-    before the first attempt and after each one.
+    before the first attempt and after each one (``utils/observability``
+    counts each such wait at the site 'rays.adaptive'). Under a profiler
+    the table build is the span ``rays.table`` and each attempt slot a
+    span ``rays.attempt``.
 
     The patch gather with ``'dopri5'`` and ``'while'`` runs each attempt
     through ``table_attempt`` (the CUDA kernel on the card, which reads the
@@ -622,7 +631,10 @@ def raytrace_adaptive(
     t1 = _as_time(t1, packets.x)
     span = t1 - t0
     use_patch = _use_patch(rp)
-    T_pair = build_pair(fields_old, fields_new, rp) if use_patch else None
+    T_pair = None
+    if use_patch:
+        with observability.span("rays.table"):
+            T_pair = build_pair(fields_old, fields_new, rp)
     C, A, BH, BE, exponent = _EMBEDDED_PAIRS[pair]
     fused = use_patch and loop == "while" and pair == "dopri5"
     n_total = packets.n
@@ -688,22 +700,28 @@ def raytrace_adaptive(
         # reached t1 a slot is a no-op (nothing moves, nothing is counted),
         # and each slot gathers the rows of the packets' current positions
         for _ in range(max_steps):
-            gathered = _gather_patch_rows(T_pair, p, rp, ny, nx) if gathers else None
-            p, t, h, accept, reject = body(p, t, h, gathered)
-            nacc = nacc + accept.to(torch.int32)
-            nrej = nrej + reject.to(torch.int32)
+            with observability.span("rays.attempt"):
+                gathered = _gather_patch_rows(T_pair, p, rp, ny, nx) if gathers else None
+                p, t, h, accept, reject = body(p, t, h, gathered)
+                nacc = nacc + accept.to(torch.int32)
+                nrej = nrej + reject.to(torch.int32)
         return p, dict(t_reached=t, h_final=h, n_accepted=nacc, n_rejected=nrej)
     # 'while' tests the clock on the host before every slot, the first
     # included; the test after a slot also says whether the packets moved
     # (then their rows are gathered anew; a rejected slot reuses them)
-    go, slots, gathered = bool(t < t1 - eps), 0, None
+    go, slots, gathered = t < t1 - eps, 0, None
+    with observability.wait("rays.adaptive"):
+        go = bool(go)
     while go and slots < max_steps:
-        if gathers and gathered is None:
-            gathered = _gather_patch_rows(T_pair, p, rp, ny, nx)
-        p, t, h, accept, reject = body(p, t, h, gathered)
-        nacc = nacc + accept.to(torch.int32)
-        nrej = nrej + reject.to(torch.int32)
-        go, moved = torch.stack([t < t1 - eps, accept]).tolist()
+        with observability.span("rays.attempt"):
+            if gathers and gathered is None:
+                gathered = _gather_patch_rows(T_pair, p, rp, ny, nx)
+            p, t, h, accept, reject = body(p, t, h, gathered)
+            nacc = nacc + accept.to(torch.int32)
+            nrej = nrej + reject.to(torch.int32)
+            test = torch.stack([t < t1 - eps, accept])
+            with observability.wait("rays.adaptive"):
+                go, moved = test.tolist()
         if moved:
             gathered = None
         slots += 1

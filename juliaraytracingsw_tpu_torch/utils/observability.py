@@ -1,12 +1,19 @@
 """Tracing, profiling and numerical-hygiene utilities (port of
 ``utils/observability.py``).
 
+- ``span``: a named stage of the program. Under a running
+  ``torch.profiler`` it is a ``record_function`` range, so the stage lands
+  in the profiler's timeline beside the kernels its ops launch, on one
+  clock, nested in the stages around it; otherwise it is one shared null
+  context and records nothing;
+- ``wait``: one place where the host blocks on the device (``bool``,
+  ``float``, ``int``, ``.item()``, ``.tolist()`` or ``.cpu()`` of a device
+  tensor), counted in ``waits`` by site whether or not a profiler runs,
+  and traced as the span ``wait.<site>``;
 - ``profile_trace``: context manager around ``torch.profiler`` (the CPU,
   and the card where there is one) writing a trace directory that
-  TensorBoard's profiler plugin or Perfetto read;
-- ``StepTimer``: wall-clock per named phase with one-line reports; it
-  synchronises the devices of the tensors it is handed before each clock
-  read, so device work is counted where it runs;
+  TensorBoard's profiler plugin or Perfetto read, stages and waits
+  included;
 - ``debug_flags``: anomaly detection for ``nan_debug`` (the backward pass
   names the forward op that made a NaN), float64 as the default dtype for
   ``x64``, deterministic algorithms for ``deterministic``, for a scope;
@@ -17,19 +24,51 @@
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["profile_trace", "StepTimer", "debug_flags", "checked_step", "NonFiniteState"]
+__all__ = ["span", "wait", "waits", "reset_waits", "WAIT_SITES", "profile_trace",
+           "debug_flags", "checked_step", "NonFiniteState"]
+
+_NULL_SPAN = contextlib.nullcontext()
+
+# the sites where the coupled driver's frames block on the device
+WAIT_SITES = ("driver.nan_guard", "driver.log", "driver.outputs", "driver.diagnostics",
+              "rays.adaptive", "rays.midpoint")
+_WAIT_SPANS = {site: "wait." + site for site in WAIT_SITES}
+# host waits on the device by site, counted by ``wait``
+waits = {site: 0 for site in WAIT_SITES}
+
+
+def reset_waits() -> None:
+    for site in waits:
+        waits[site] = 0
+
+
+def span(name: str):
+    """``with span("flow.step"): ...``: a ``record_function`` range while a
+    profiler records, else a shared null context; the test is one read of
+    the flag ``torch.autograd.profiler`` keeps for it."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL_SPAN
+    return torch.profiler.record_function(name)
+
+
+def wait(site: str):
+    """Count one host wait on the device at ``site`` (one of
+    ``WAIT_SITES``) and return the span ``wait.<site>`` to hold around the
+    blocking call: ``with wait("driver.log"): t = float(clock.t)``."""
+    waits[site] += 1
+    return span(_WAIT_SPANS[site])
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """``torch.profiler`` scope: the trace goes to ``log_dir``
     (``*.pt.trace.json``) when the scope ends; yields the profiler, whose
-    ``key_averages()`` sums the time by op and kernel."""
+    ``key_averages()`` sums the time by op and kernel. The program's spans
+    and waits are ranges of the host's timeline in the trace."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -38,58 +77,6 @@ def profile_trace(log_dir: str):
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)
                  ) as prof:
         yield prof
-
-
-def _devices(tree) -> set:
-    """The CUDA devices of the tensors in a tree of tuples, lists, dicts."""
-    if isinstance(tree, torch.Tensor):
-        return {tree.device} if tree.device.type == "cuda" else set()
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (tuple, list)):
-        return set().union(*(_devices(t) for t in tree))
-    return set()
-
-
-def _sync(block_on) -> None:
-    for device in _devices(block_on):
-        torch.cuda.synchronize(device)
-
-
-class StepTimer:
-    """Accumulate wall-clock per named phase::
-
-        with timer("flow", block_on=sol): ...
-
-    With ``sync`` (the default) the devices of ``block_on``'s tensors are
-    synchronised before the clock is read at both ends of the phase."""
-
-    def __init__(self, sync: bool = True):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-        self.sync = sync
-
-    @contextlib.contextmanager
-    def __call__(self, name: str, block_on=None):
-        if self.sync:
-            _sync(block_on)
-        t0 = time.perf_counter()
-        yield
-        if self.sync:
-            _sync(block_on)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def report(self) -> str:
-        parts = []
-        for name in sorted(self.totals, key=lambda n: -self.totals[n]):
-            tot, cnt = self.totals[name], self.counts[name]
-            parts.append(f"{name}: {tot:.3f}s/{cnt} ({tot / max(cnt, 1) * 1e3:.1f} ms ea)")
-        return " | ".join(parts)
-
-    def reset(self):
-        self.totals.clear()
-        self.counts.clear()
 
 
 @contextlib.contextmanager

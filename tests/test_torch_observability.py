@@ -2,8 +2,6 @@
 
 - ``profile_trace`` writes a ``torch.profiler`` trace holding the ops run
   inside it;
-- ``StepTimer`` accumulates per phase and reports in the JAX package's
-  format;
 - ``debug_flags`` switches anomaly detection, the float64 default and
   deterministic algorithms for a scope and restores them;
 - ``checked_step`` passes finite steps through and raises
@@ -14,14 +12,12 @@
 import glob
 import json
 import os
-import time
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from juliaraytracingsw_tpu.utils import observability as jobs  # noqa: E402
 from juliaraytracingsw_tpu_torch.core.steppers import Clock, zero_clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.utils import observability as obs  # noqa: E402
 from juliaraytracingsw_tpu_torch.utils.live import LiveDashboard  # noqa: E402
@@ -36,27 +32,6 @@ def test_profile_trace_writes_a_trace(tmp_path):
     names = {e.get("name") for e in json.load(open(traces[0]))["traceEvents"]}
     assert "aten::mm" in names
     assert any(e.key == "aten::mm" for e in prof.key_averages())
-
-
-def test_step_timer_reports_like_the_jax_package():
-    timers = (obs.StepTimer(), jobs.StepTimer())
-    x = torch.ones(8)
-    for timer in timers:
-        for name, n in (("flow", 2), ("rays", 1)):
-            for _ in range(n):
-                with timer(name, block_on=x if timer is timers[0] else None):
-                    time.sleep(0.002)
-        # the same totals, so the same line
-        timer.totals.update(flow=0.25, rays=0.5)
-    assert timers[0].report() == timers[1].report()
-    assert timers[0].report().startswith("rays: 0.500s/1 (500.0 ms ea) | flow: 0.250s/2")
-    timers[0].reset()
-    assert timers[0].report() == ""
-
-
-def test_step_timer_finds_tensors_in_trees():
-    x = torch.ones(3)
-    assert obs._devices({"a": (x, [x]), "b": None}) == set()     # CPU: nothing to sync
 
 
 def test_debug_flags_scope_and_restore():
