@@ -49,7 +49,7 @@ without them, and on any failed check. Phases, each printing its lines:
    its peak memory, and 10 steps with and without remat, held equal;
 6. the command line on the card (``juliaraytracingsw_tpu_torch.experiments``):
    6a. the RK4 hero through ``rsw ... --gather auto --checkpoint``: 'auto'
-   resolves to patch, the table kernel launches 20 times and the first cut
+   resolves to patch, the table kernel runs 20 times and the first cut
    never, the HDF5 outputs hold 4 packet frames and 4 snapshots,
    diagnostics are finite, energy changes by less than 1%, |k| < k_cutoff;
    coupled steps/s over the last 3 frames with the writers and without,
@@ -66,7 +66,7 @@ without them, and on any failed check. Phases, each printing its lines:
    without writers: 7a. ``bench.py:282-310``'s 2048^2 two-layer flow, 40
    IF-AB3 steps timed, the host seconds of its expm tables; 7b. ``twolayer``
    at 2048^2 x 262,144 packets ('auto' -> taps); 7c. at 512^2 x 1,048,576
-   ('auto' -> patch, exactly 20 table launches), barotropic and
+   ('auto' -> patch, exactly 20 table kernel runs), barotropic and
    ``--baroclinic``; 7d. 3 layers, 512^2 x 262,144, one frame; 7e.
    Thomas-Yamada 512^2, ETDRK4, a startup and a main phase through
    ``ty_driver._phase``, the host seconds of its contour coefficients;
@@ -79,7 +79,7 @@ without them, and on any failed check. Phases, each printing its lines:
    ulp), the twin on the card bit-equal to the twin on the CPU, each timed
    beside its byte bound; 8b. hero_bd (``bench.py:202``): 512^2 RSW,
    262,144 packets, bilinear bf16 tables, RK4, Weibull(1.5, 10) seeded 0,
-   4 frames of 5 steps, exactly 20 table and 20 birth/death launches,
+   4 frames of 5 steps, exactly 20 table and 20 birth/death kernel runs,
    births within 5 sigma of N T E[1/L]; 8c. its JAX-format checkpoint
    restored on the CPU, the next frame's population bit-equal; 8d.
    ``steady-raytracing`` through the command line at 512^2 x 1,048,576
@@ -107,15 +107,22 @@ without them, and on any failed check. Phases, each printing its lines:
 
 The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
 5c, 6a, each coupled case of phase 7, 8b, 8d, 9b and 9d) and read after
-it; the heroes must launch only the table forms. The
-first cut runs on no main path: its launches are phase 2's. Every time
-printed carries the card's name and power limit.
+it; the heroes must launch only the table forms. The wrappers' counters
+count the host's launches, and ``CoupledDriver`` replays its frames as
+CUDA graphs, which run their kernels with none: on the paths through it
+(4, 4b, 6a, the coupled cases of phase 7, 8b) the ray and birth/death
+kernels' runs on the card are counted from a ``torch.profiler`` trace of
+the run (``kernel_runs``), graph replays included, and the counters show
+that no other interp's kernel launched. The first cut runs on no main
+path: its launches are phase 2's. Every time printed carries the card's
+name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -550,16 +557,17 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
         end.record()
         torch.cuda.synchronize()
         res["flow_steps_per_s"] = spinup_steps / (start.elapsed_time(end) / 1e3)
-    launches0 = ray_step.table_launches[interp]
-    attempt_launches0 = ray_step.table_attempt_launches[interp]
-    first_cut0 = launch_counts()["first cut"]
-    marks.append(torch.cuda.Event(enable_timing=True))
-    marks[-1].record()
-    drv.run(n_frames=n_frames, flow_steps_per_frame=flow_steps)
-    torch.cuda.synchronize()
-    res["launches"] = ray_step.table_launches[interp] - launches0
-    res["attempt_launches"] = ray_step.table_attempt_launches[interp] - attempt_launches0
-    res["first_cut_launches"] = launch_counts()["first cut"] - first_cut0
+    others0 = {k: v for k, v in launch_counts()["table"].items() if k != interp}
+    with kernel_runs() as runs:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        drv.run(n_frames=n_frames, flow_steps_per_frame=flow_steps)
+    if {k: v for k, v in launch_counts()["table"].items() if k != interp} != others0:
+        raise AssertionError(f"hero {tag}: another interp's table kernel launched")
+    res["launches"] = runs["table"]
+    res["attempt_launches"] = runs["table attempt"]
+    res["first_cut_launches"] = runs["first cut"]
+    res["bd_launches"] = runs["birth_death"]
     res["attempts"] = sum(int(i["n_accepted"]) + int(i["n_rejected"])
                           for i in drv.ray_infos)
     res["coupled_steps"] = n_frames * flow_steps
@@ -581,12 +589,12 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
             else "over 1 frame, first call included")
     if ray_method == "rk4":
         rate = f"{res['ray_steps_per_s']:.4e} ray-steps/s"
-        kernel = f"table kernel launches {res['launches']}"
+        kernel = f"table kernel runs {res['launches']}"
     else:
         rate = f"{res['ray_steps_per_s']:.4e} ray-intervals/s"
-        kernel = (f"table attempt kernel launches {res['attempt_launches']} for "
-                  f"{res['attempts']} attempts, RK4 table kernel launches {res['launches']}")
-    kernel += f", first-cut (rows_T) kernel launches {res['first_cut_launches']}"
+        kernel = (f"table attempt kernel runs {res['attempt_launches']} for "
+                  f"{res['attempts']} attempts, RK4 table kernel runs {res['launches']}")
+    kernel += f", first-cut (rows_T) kernel runs {res['first_cut_launches']}"
     print(f"hero {tag} ({nx}^2 RSW + {res['n']} packets, bf16 tables): {flow}"
           f"{res['coupled_steps_per_s']:.2f} coupled steps/s, {rate} {over} "
           f"(frame ms {', '.join(f'{m:.2f}' for m in frame_ms)}); {kernel}; "
@@ -603,6 +611,31 @@ def launch_counts() -> dict:
     return {"table": dict(ray_step.table_launches),
             "table attempt": dict(ray_step.table_attempt_launches),
             "first cut": sum(ray_step.launches.values()) + sum(ray_step.attempt_launches.values())}
+
+
+# the hand-written kernels by the names they run under on the card
+KERNEL_NAMES = {"table": ("ray_step_table_kernel",),
+                "table attempt": ("ray_attempt_table_kernel",),
+                "first cut": ("ray_step_kernel", "ray_attempt_kernel"),
+                "birth_death": ("birth_death_kernel",)}
+
+
+@contextlib.contextmanager
+def kernel_runs():
+    """``with kernel_runs() as runs: ...``: the ray and birth/death
+    kernels' runs on the card inside the block, CUDA graph replays
+    included, from a ``torch.profiler`` trace; ``runs`` holds them by the
+    keys of ``KERNEL_NAMES`` once the block has ended."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs: dict = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        yield runs
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    for key, subs in KERNEL_NAMES.items():
+        runs[key] = sum(1 for n in names if any(sub in n for sub in subs))
 
 
 def check_rows(rows: list, interps) -> None:
@@ -990,16 +1023,17 @@ def phase_cli_hero(card: str, device, out_dir: str, phase4_steps_per_s: float) -
               "without writers, diagnostics kept in memory; the checkpoint (numpy) is "
               "written")
     ray_step.reset_launches()
-    drv, case, frame_ms = timed_cli(argv, "cli hero", "hdf5" if have_h5py else "none")
+    with kernel_runs() as runs:
+        drv, case, frame_ms = timed_cli(argv, "cli hero", "hdf5" if have_h5py else "none")
     counts = launch_counts()
-    res = dict(launches=counts["table"]["bilinear"], table_counts=counts["table"],
-               first_cut=counts["first cut"], gather=drv.rp.gather,
+    res = dict(launches=runs["table"], table_counts={**counts["table"], "bilinear": runs["table"]},
+               first_cut=runs["first cut"], gather=drv.rp.gather,
                writers="hdf5" if have_h5py else "none")
     if res["gather"] != "patch":
         raise AssertionError(f"6a: --gather auto resolved to {res['gather']}, not patch")
     others = {k: v for k, v in counts["table"].items() if k != "bilinear"}
-    if res["launches"] != 20 or res["first_cut"] or any(others.values()) or any(
-            counts["table attempt"].values()):
+    if res["launches"] != 20 or res["first_cut"] or any(others.values()) or runs[
+            "table attempt"] or any(counts["table attempt"].values()):
         raise AssertionError(f"6a: the command line's hero launched {counts}, not the "
                              f"bilinear table kernel 20 times")
     grid, params = case.model.grid, case.model.params
@@ -1028,8 +1062,8 @@ def phase_cli_hero(card: str, device, out_dir: str, phase4_steps_per_s: float) -
     files = (f"{n_packet} packet frames and {n_snap} snapshots in HDF5" if have_h5py
              else "no HDF5 files (no h5py)")
     print(f"6a hero through the command line (rsw, {grid.nx}^2, {sim.packets.n} packets, bilinear, "
-          f"bf16 tables, --gather auto -> {res['gather']}): table kernel launches "
-          f"{res['launches']}, first-cut launches {res['first_cut']}; {files}; diagnostics "
+          f"bf16 tables, --gather auto -> {res['gather']}): table kernel runs "
+          f"{res['launches']}, first-cut runs {res['first_cut']}; {files}; diagnostics "
           f"{sorted(diags)} finite {diag_ok}; energy change {res['dE']:.3e}; max |k| "
           f"{kmax:.3f} (cutoff {K_CUTOFF}); finite {finite}; checkpoint "
           f"{os.path.getsize(os.path.join(out_dir, 'hero.npz')) / 2**20:.1f} MiB [{card}]")
@@ -1235,8 +1269,8 @@ def phase_cli_case(card: str, argv: list[str], tag: str, gather: str, launches: 
             marks[-1].record()
 
     ray_step.reset_launches()
-    drv, case, (_, frames, steps_per_frame) = drive_cli(argv, log_fn, marks=marks)
-    torch.cuda.synchronize()
+    with kernel_runs() as runs:
+        drv, case, (_, frames, steps_per_frame) = drive_cli(argv, log_fn, marks=marks)
     counts = launch_counts()
     # the diagnostics each frame records before its end mark, timed alone
     t0 = time.perf_counter()
@@ -1256,21 +1290,21 @@ def phase_cli_case(card: str, argv: list[str], tag: str, gather: str, launches: 
             else "over 1 frame, first call included")
     print(f"{tag} ({argv[0]}, {grid.nx}^2, {sim.packets.n} packets, {frames} x {steps_per_frame} steps, "
           f"--gather auto -> {drv.rp.gather}): {rate:.2f} coupled steps/s {over} (frame ms "
-          f"{', '.join(f'{m:.2f}' for m in frame_ms)}); table kernel launches "
-          f"{counts['table']['bilinear']}, first-cut launches {counts['first cut']}; "
+          f"{', '.join(f'{m:.2f}' for m in frame_ms)}); table kernel runs "
+          f"{runs['table']}, first-cut runs {runs['first cut']}; "
           f"diagnostics {sorted(diags)} finite {diag_ok}, {diag_ms:.2f} ms a frame (host "
           f"clock); max |k| {kmax:.3f} (cutoff "
           f"{K_CUTOFF}); finite {finite}; no writers [{card}]", flush=True)
     others = {k: v for k, v in counts["table"].items() if k != "bilinear"}
     if drv.rp.gather != gather:
         raise AssertionError(f"{tag}: --gather auto resolved to {drv.rp.gather}, not {gather}")
-    if (counts["table"]["bilinear"] != launches or counts["first cut"] or any(others.values())
-            or any(counts["table attempt"].values())):
-        raise AssertionError(f"{tag}: launched {counts}, not the bilinear table kernel "
-                             f"{launches} times")
+    if (runs["table"] != launches or runs["first cut"] or runs["table attempt"]
+            or any(others.values()) or any(counts["table attempt"].values())):
+        raise AssertionError(f"{tag}: ran {runs}, launched {counts}, not the bilinear table "
+                             f"kernel {launches} times")
     if not (finite and diag_ok and kmax < K_CUTOFF):
         raise AssertionError(f"{tag}: the run failed its checks")
-    return dict(launches=counts["table"]["bilinear"], steps_per_s=rate, frame_ms=frame_ms,
+    return dict(launches=runs["table"], steps_per_s=rate, frame_ms=frame_ms,
                 diag_ms=diag_ms)
 
 
@@ -1592,8 +1626,8 @@ def phase_hero_bd(card: str, device, rk4_rate: float, nx: int = 512,
     """8b: hero_bd (bench.py:202) through CoupledDriver with its launches
     counted from 0: 512^2 RSW, 262,144 lattice packets, bilinear bf16
     tables, IF-AB3, RK4, Weibull(1.5, 10) birth/death seeded 0, 4 frames of
-    5 steps at the hero's DT; exactly 20 table and 20 birth/death launches,
-    births within 5 sigma of N T E[1/L] -> (its numbers, the driver)."""
+    5 steps at the hero's DT; exactly 20 table and 20 birth/death kernel
+    runs on the card, births within 5 sigma of N T E[1/L] -> (its numbers, the driver)."""
     import math
 
     from juliaraytracingsw_tpu_torch.ops import birth_death, ray_step
@@ -1603,7 +1637,6 @@ def phase_hero_bd(card: str, device, rk4_rate: float, nx: int = 512,
     res, drv = hero(card, device, "bilinear", spinup_steps=0, n_frames=4, sqrtp=sqrtp,
                     driver_kw=HERO_BD, tag="hero_bd", nx=nx)
     torch.cuda.synchronize()
-    res["bd_launches"] = birth_death.launches["birth_death"]
     check_rows([res], ["hero_bd"])
     n, T = drv.sim.packets.n, float(drv.sim.clock.t)
     births = int(drv.sim.bd.births)
@@ -1612,12 +1645,12 @@ def phase_hero_bd(card: str, device, rk4_rate: float, nx: int = 512,
     sigma = math.sqrt(expected)
     print(f"8b hero_bd: {res['coupled_steps_per_s']:.2f} coupled steps/s, "
           f"{res['coupled_steps_per_s'] / rk4_rate:.3f}x phase 4's RK4 hero (1,048,576 "
-          f"packets); table kernel launches {res['launches']}, birth_death launches "
+          f"packets); table kernel runs {res['launches']}, birth_death runs "
           f"{res['bd_launches']}; births in {drv.sim.clock.step} steps {births} (expected "
           f"N T E[1/L] = {expected:.1f} +- 5 sigma {5 * sigma:.1f}); mean age "
           f"{float(drv.sim.bd.age.mean()):.4f} [{card}]", flush=True)
     if res["launches"] != 20 or res["bd_launches"] != 20:
-        raise AssertionError(f"hero_bd launched {res['launches']} table and "
+        raise AssertionError(f"hero_bd ran {res['launches']} table and "
                              f"{res['bd_launches']} birth/death kernels, not 20 and 20")
     if abs(births - expected) > 5 * sigma:
         raise AssertionError(f"hero_bd: {births} births, expected {expected:.1f}")
@@ -2140,7 +2173,7 @@ def main() -> int:
     rows = [main_run] + [hero(card, device, interp, spinup_steps=0, n_frames=2)[0]
                          for interp in INTERPS[1:]]
     check_rows(rows, INTERPS)
-    counts = dict(ray_step.table_launches)
+    counts = {interp: res["launches"] for interp, res in zip(INTERPS, rows)}
 
     # the adaptive main path: its launches are counted from 0 again
     ray_step.reset_launches()
@@ -2150,8 +2183,8 @@ def main() -> int:
                                 ray_method="adaptive", ray_opts=HERO_ADAPTIVE)[0]
                            for interp in INTERPS[1:]]
     check_rows(ad_rows, INTERPS)
-    attempt_counts = dict(ray_step.table_attempt_launches)
-    if any(ray_step.table_launches.values()):
+    attempt_counts = {interp: res["attempt_launches"] for interp, res in zip(INTERPS, ad_rows)}
+    if any(ray_step.table_launches.values()) or any(res["launches"] for res in ad_rows):
         raise AssertionError(f"the adaptive path launched RK4 kernels: "
                              f"{ray_step.table_launches}")
     for res in ad_rows:

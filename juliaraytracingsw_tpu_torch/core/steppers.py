@@ -27,11 +27,14 @@ import numpy as np
 import scipy.linalg
 import torch
 
-__all__ = ["Clock", "tick", "zero_clock", "apply_L", "expm_tables",
+__all__ = ["BOOTSTRAP_STEPS", "Clock", "tick", "zero_clock", "apply_L", "expm_tables",
            "AB3State", "EmptyState", "make_ifab3", "make_ifrk4", "make_etdrk4",
            "make_filtered_ab3", "make_filtered_rk4"]
 
 AB3_H1, AB3_H2, AB3_H3 = 23.0 / 12.0, 16.0 / 12.0, 5.0 / 12.0
+# the AB3 steppers take forward-Euler steps while the host's Clock.step is
+# below this
+BOOTSTRAP_STEPS = 3
 
 
 class Clock(NamedTuple):
@@ -120,7 +123,7 @@ def make_ifab3(
 
     def step(sol, clock: Clock, state: AB3State):
         N = calcN(sol, clock.t)
-        if clock.step < 3:
+        if clock.step < BOOTSTRAP_STEPS:
             new = apply_L(expLdt, sol + dt * N)
         else:
             incr = dt * (
@@ -269,7 +272,7 @@ def make_filtered_ab3(
 
     def step(sol, clock: Clock, state: AB3State):
         R = rhs(sol, clock.t)
-        if clock.step < 3:
+        if clock.step < BOOTSTRAP_STEPS:
             new = sol + dt * R
         else:
             new = sol + dt * (AB3_H1 * R - AB3_H2 * state.N1 + AB3_H3 * state.N2)

@@ -18,19 +18,38 @@
   telemetry), diagnostics, the live dashboard, CFL/walltime logging and
   bit-exact checkpoints (the birth/death key included).
 
-Frames are Python loops that enqueue device work; the host waits on the
-device once per frame, in the NaN guard, and again where a frame's
-outputs go to the host: one copy of the packet telemetry, one of each
-snapshot, one of each diagnostic, and the log line's two scalars. Every
-such wait is counted by site in ``utils/observability.waits``. Under a
-running ``torch.profiler`` each stage is a span (``utils/observability.span``):
-``frame.coupled``/``frame.flow`` around a frame, ``flow.step``,
-``rays.fields``, ``rays.table``, ``rays.step`` or ``rays.adaptive``,
-``rays.reset``, ``rays.birth_death`` inside it, and ``driver.nan_guard``,
-``driver.diagnostics``, ``driver.outputs``, ``driver.live``,
-``driver.log`` after it, each wait a span ``wait.<site>``. Everything in
-a frame is differentiable but the adaptive integrator's 'while' loop and
-its fused attempt, which are forward only, as in the reference.
+A frame is a Python loop that enqueues device work. On the card a frame
+replays as one CUDA graph (``torch.cuda.CUDAGraph``, one
+``cudaGraphLaunch``) wherever it can: from its second call on, when
+nothing in the state requires grad, ``remat`` is off, the host's
+``clock.step`` is past the steppers' forward-Euler bootstrap
+(``core/steppers.BOOTSTRAP_STEPS``) and the ray step never waits on the
+device (every flow frame; the coupled frames of ``rk4`` and ``dopri5``,
+not ``midpoint``, ``adaptive`` or ``adaptive7``). The first call runs
+eager: it creates the cuFFT plans and loads the kernels the capture then
+records. The capture clones the state into the graph's static buffers,
+and every replay leaves its result there, so ``drv.sim``'s tensors are
+the driver's own, overwritten by the next frame: copy them to keep them.
+``observability.graph_frames`` counts how each frame ran
+(``eager.<reason>`` from ``observability.GRAPH_REASONS``). The kernels'
+launch counters (``ops/ray_step``, ``ops/birth_death``) count the host's
+launches, a capture's included; a replay runs the kernels it holds with
+no host call, and counts only in ``graph_frames["replayed"]``.
+
+The host waits on the device once per frame, in the NaN guard, and again
+where a frame's outputs go to the host: one copy of the packet
+telemetry, one of each snapshot, one of each diagnostic, and the log
+line's two scalars. Every such wait is counted by site in
+``utils/observability.waits``. Under a running ``torch.profiler`` each
+stage is a span (``utils/observability.span``): ``frame.coupled``/
+``frame.flow`` around a frame (around its replay, for a graph),
+``flow.step``, ``rays.fields``, ``rays.table``, ``rays.step`` or
+``rays.adaptive``, ``rays.reset``, ``rays.birth_death`` inside an eager
+frame, and ``driver.nan_guard``, ``driver.diagnostics``,
+``driver.outputs``, ``driver.live``, ``driver.log`` after it, each wait a
+span ``wait.<site>``. Everything in a frame is differentiable but the
+adaptive integrator's 'while' loop and its fused attempt, which are
+forward only, as in the reference.
 """
 from __future__ import annotations
 
@@ -42,8 +61,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..core.steppers import Clock, zero_clock
+from ..core.steppers import BOOTSTRAP_STEPS, Clock, zero_clock
 from ..models.base import Model, build_stepper
+from ..rays.interp import bspline_prefilter_mask
 from ..rays.packets import Packets
 from ..rays.patch import build_patch_table
 from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_from_psih,
@@ -53,15 +73,19 @@ from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_fro
 from ..rays.prng import prng_key
 from ..rays.resample import (BirthDeathState, init_birth_death, k_cutoff_reset,
                              weibull_birth_death)
-from ..utils.observability import span, wait
+from ..utils.observability import graph_frames, span, wait
 
 __all__ = [
     "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
-    "make_flow_frame", "CoupledDriver", "RAY_METHODS",
+    "make_flow_frame", "CoupledDriver", "RAY_METHODS", "HOST_WAIT_METHODS",
+    "eager_reason",
 ]
 
 # fixed-step integrators, then the adaptive ones
 RAY_METHODS = ("rk4", "dopri5", "midpoint", "adaptive", "adaptive7")
+# the ray methods whose step waits on the device: implicit midpoint in its
+# Newton loop, the adaptive integrators after each attempt
+HOST_WAIT_METHODS = ("midpoint", "adaptive", "adaptive7")
 
 
 def derive_dt(cfltune: float, umax: float, dx: float) -> float:
@@ -87,6 +111,12 @@ class SimState(NamedTuple):
     packets: Packets
     fields: torch.Tensor   # (5, ny, nx) current interpolation fields
     bd: BirthDeathState | None = None
+
+
+def _prefilter(grid, interp: str) -> torch.Tensor | None:
+    """The B-spline prefilter of a frame's fields, made once when the frame
+    is built (it is made on the host: a CUDA graph cannot capture that)."""
+    return bspline_prefilter_mask(grid) if interp == "bspline" else None
 
 
 def _check_ray_method(ray_method: str) -> None:
@@ -145,6 +175,7 @@ def make_coupled_frame(
     adaptive = ray_method in ("adaptive", "adaptive7")
     # the adaptive integrator builds its own pair table from the fields
     use_patch = _use_patch(rp) and not adaptive
+    prefilter = _prefilter(grid, rp.interp)
     ray_opts = dict(ray_opts or {})
     if adaptive:
         ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
@@ -160,7 +191,7 @@ def make_coupled_frame(
             with span("flow.step"):
                 sol, clock, sstate = step_fn(sol, clock, sstate)
             with span("rays.fields"):
-                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+                fields = fields_from_psih(psih_fn(sol), grid, rp.interp, prefilter)
             T_new = None
             if use_patch:
                 with span("rays.table"):
@@ -217,6 +248,7 @@ def make_coupled_frame(
 def make_flow_frame(model: Model, step_fn, psih_fn, rp: RayParams, flow_steps: int):
     """``frame(sim) -> sim``: flow-only steps, then refresh the fields."""
     grid = model.grid
+    prefilter = _prefilter(grid, rp.interp)
 
     def frame(sim: SimState) -> SimState:
         with span("frame.flow"):
@@ -225,10 +257,109 @@ def make_flow_frame(model: Model, step_fn, psih_fn, rp: RayParams, flow_steps: i
                 with span("flow.step"):
                     sol, clock, sstate = step_fn(sol, clock, sstate)
             with span("rays.fields"):
-                fields = fields_from_psih(psih_fn(sol), grid, rp.interp)
+                fields = fields_from_psih(psih_fn(sol), grid, rp.interp, prefilter)
             return SimState(sol, clock, sstate, sim.packets, fields, sim.bd)
 
     return frame
+
+
+def eager_reason(device: torch.device, requires_grad: bool, remat: bool,
+                 ray_method: str | None, step: int, calls: int) -> str | None:
+    """Why a frame runs eager (one of ``observability.GRAPH_REASONS``), or
+    None when it may run as a CUDA graph: the state's ``device``, whether a
+    state tensor ``requires_grad``, ``remat``, the coupled frame's
+    ``ray_method`` (None for a flow frame), the host's ``clock.step`` at the
+    frame's start and the ``calls`` of the same frame made before."""
+    if torch.device(device).type != "cuda":
+        return "cpu"
+    if requires_grad or remat:
+        return "grad"
+    if ray_method in HOST_WAIT_METHODS:
+        return "loop"
+    if step < BOOTSTRAP_STEPS:
+        return "bootstrap"
+    if calls < 1:
+        return "first_call"
+    return None
+
+
+def _carried(sim: SimState, kind: str) -> list:
+    """The state tensors a frame of ``kind`` reads or writes, in a fixed
+    order; a flow frame passes the packets and the birth/death state on
+    untouched."""
+    leaves = [sim.sol, sim.clock.t, *sim.stepper_state, sim.fields]
+    if kind == "coupled":
+        leaves += [*sim.packets, *(sim.bd or ())]
+    return leaves
+
+
+def _with_carried(sim: SimState, kind: str, leaves: list, step: int) -> SimState:
+    """``sim`` with the tensors ``_carried`` lists replaced by ``leaves``
+    and the host's step count ``step``."""
+    it = iter(leaves)
+    sol, t = next(it), next(it)
+    sstate = type(sim.stepper_state)(*(next(it) for _ in sim.stepper_state))
+    fields = next(it)
+    if kind != "coupled":
+        return SimState(sol, Clock(t, step), sstate, sim.packets, fields, sim.bd)
+    packets = Packets(*(next(it) for _ in sim.packets))
+    bd = None if sim.bd is None else BirthDeathState(*(next(it) for _ in sim.bd))
+    return SimState(sol, Clock(t, step), sstate, packets, fields, bd)
+
+
+def _copy_back(static: list, leaves: list) -> None:
+    """``s.copy_(t)`` for each buffer ``s`` and tensor ``t`` that is not
+    ``s`` itself: first the tensors that are buffers (or views of one), then
+    the others, so that every buffer is read before it is overwritten
+    (AB3's N2 <- N1 before N1 <- N; the steppers' states shift one slot at
+    most)."""
+    ptrs = {s.untyped_storage().data_ptr() for s in static}
+    pairs = [(s, t) for s, t in zip(static, leaves) if t is not s]
+    for s, t in sorted(pairs, key=lambda p: p[1].untyped_storage().data_ptr() not in ptrs):
+        s.copy_(t)
+
+
+class _FrameGraph:
+    """One frame captured as a CUDA graph over static state buffers.
+
+    ``buffers`` clones the state's tensors into the buffers, so that no
+    tensor a caller holds is ever written and no two buffers alias (as
+    ``init``'s ``AB3State(z, z)`` does). ``capture`` records the frame, then
+    the copies of its outputs back into the buffers. ``replay`` copies a
+    state the driver was handed (by ``init``, ``restore`` or a ``sim`` put
+    in place) into the buffers, replays, and returns the state over the
+    buffers. The kernels' launch counters count the capture's launches,
+    not the replays': a replay runs them with no host call."""
+
+    def __init__(self, frame: Callable, kind: str, flow_steps: int):
+        self.frame, self.kind, self.flow_steps = frame, kind, flow_steps
+        self.static: list = []
+        self.graph = None
+
+    def buffers(self, sim: SimState) -> SimState:
+        self.static = [t.clone() for t in _carried(sim, self.kind)]
+        return _with_carried(sim, self.kind, self.static, sim.clock.step)
+
+    def capture(self, sim: SimState) -> None:
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(sim.sol.device), torch.no_grad(), \
+                torch.cuda.graph(self.graph):
+            _copy_back(self.static, _carried(self.frame(sim), self.kind))
+        graph_frames["captured"] += 1
+
+    def replay(self, sim: SimState) -> SimState:
+        handed = _carried(sim, self.kind)
+        for s, t in zip(self.static, handed):
+            if (s.shape, s.dtype, s.device) != (t.shape, t.dtype, t.device):
+                raise ValueError(
+                    f"the state's {tuple(t.shape)} {t.dtype} tensor on {t.device} does not "
+                    f"fit the frame's {tuple(s.shape)} {s.dtype} buffer on {s.device}: "
+                    "start a state of other shapes with init()")
+        with span(f"frame.{self.kind}"):
+            _copy_back(self.static, handed)
+            self.graph.replay()
+        graph_frames["replayed"] += 1
+        return _with_carried(sim, self.kind, self.static, sim.clock.step + self.flow_steps)
 
 
 @dataclass
@@ -246,6 +377,16 @@ class CoupledDriver:
 
     ``remat=True`` checkpoints each coupled step of a frame for the
     backward pass (``make_coupled_frame``).
+
+    On the card the flow frames and the ``rk4``/``dopri5`` coupled frames
+    replay as CUDA graphs from their second call on, once the stepper's
+    bootstrap is past and nothing requires grad (the module's docstring
+    says when exactly); the midpoint and adaptive frames, and every frame
+    on the CPU, run eager. ``sim``'s tensors are the driver's own buffers,
+    which the next frame overwrites: copy them to keep them. The capture
+    clones the state into the buffers, and a state handed in later
+    (``init``, ``restore``, or a ``sim`` put in place) is copied into them:
+    a caller's tensors are never written.
 
     Outputs: ``snapshot_writer`` and ``packet_writer`` (``io/output``
     ``SequencedWriter``s) take the problem's header at ``init``, each
@@ -305,13 +446,20 @@ class CoupledDriver:
         self.diag_times: list = []
         self.ray_infos: list[dict] = []
         self._frame_cache: dict = {}
+        self._reset_graphs()
         self._start_wall = time.time()
+
+    def _reset_graphs(self):
+        # (kind, flow_steps) -> its _FrameGraph, and its calls so far
+        self._graphs: dict = {}
+        self._calls: dict = {}
 
     # --- lifecycle -----------------------------------------------------------
     def init(self, sol0: torch.Tensor, packets: Packets, clock: Clock | None = None):
         grid = self.model.grid
         with span("rays.fields"):
             fields = fields_from_psih(self.psih_fn(sol0), grid, self.rp.interp)
+        self._reset_graphs()
         bd = None
         if self.birth_death:
             bd = init_birth_death(prng_key(self.bd_seed, device=sol0.device), packets.n,
@@ -361,7 +509,7 @@ class CoupledDriver:
         done = 0
         while done < nsteps:
             k = min(chunk, nsteps - done)
-            self.sim = self._get_frame("flow", k)(self.sim)
+            self._advance("flow", k)
             done += k
             self._check_nan("spinup")
         return self.sim
@@ -370,10 +518,9 @@ class CoupledDriver:
         """Main coupled loop: n_frames x (flow steps interleaved with rays),
         writing packet telemetry each frame and snapshots every
         ``snapshot_every`` frames."""
-        frame = self._get_frame("coupled", flow_steps_per_frame)
         self.ray_infos.clear()
         for i in range(n_frames):
-            self.sim = frame(self.sim)
+            self._advance("coupled", flow_steps_per_frame)
             self._check_nan(f"frame {i}")
             self._record_diagnostics(i)
             self._write_packet_frame()
@@ -387,6 +534,33 @@ class CoupledDriver:
                 self._log(i)
         self.flush()
         return self.sim
+
+    def _advance(self, kind: str, flow_steps: int):
+        """One frame of ``kind`` from ``self.sim``: eager, or the frame's
+        CUDA graph, captured at its first call that may run as one
+        (``eager_reason``)."""
+        key = (kind, flow_steps)
+        frame = self._get_frame(kind, flow_steps)
+        calls = self._calls.get(key, 0)
+        self._calls[key] = calls + 1
+        coupled = kind == "coupled"
+        reason = eager_reason(self.sim.sol.device,
+                              any(t.requires_grad for t in _carried(self.sim, kind)),
+                              self.remat and coupled, self.ray_method if coupled else None,
+                              self.sim.clock.step, calls)
+        if reason is not None:
+            graph_frames["eager." + reason] += 1
+            self.sim = frame(self.sim)
+            return
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = _FrameGraph(frame, kind, flow_steps)
+            # the buffers stand for the state from here, so that the frame's
+            # input is freed before the capture allocates
+            self.sim = graph.buffers(self.sim)
+            graph.capture(self.sim)
+            self._graphs[key] = graph
+        self.sim = graph.replay(self.sim)
 
     # --- helpers -------------------------------------------------------------
     def _check_nan(self, where: str):

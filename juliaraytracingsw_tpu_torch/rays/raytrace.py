@@ -113,17 +113,21 @@ def check_ray_params(rp: RayParams) -> None:
                          f"available: {sorted(_TABLE_DTYPES)}")
 
 
-def fields_from_psih(psih: torch.Tensor, grid, interp: str = "bilinear") -> torch.Tensor:
+def fields_from_psih(psih: torch.Tensor, grid, interp: str = "bilinear",
+                     prefilter: torch.Tensor | None = None) -> torch.Tensor:
     """Interpolation field stack from a streamfunction spectrum, as one
     batched inverse transform: ``(5, ny, nx)`` [u, v, ux, uy, vx] (for
     'bspline' with the spectral B-spline prefilter folded in), or for
-    'bicubic' ``(20, ny, nx)`` = [f | fx | fy | fxy] of those 5 fields."""
+    'bicubic' ``(20, ny, nx)`` = [f | fx | fy | fxy] of those 5 fields.
+    ``prefilter`` is ``bspline_prefilter_mask(grid)`` computed once by a
+    caller that calls this in a loop (the mask is made on the host, which
+    a CUDA graph cannot capture); by default it is made here."""
     stackh = torch.stack(spectral_gradients(psih, grid))
     if interp == "bicubic":
         ik, il = grid.ik, grid.il
         stackh = torch.cat([stackh, ik * stackh, il * stackh, ik * il * stackh])
     elif interp == "bspline":
-        stackh = stackh * bspline_prefilter_mask(grid)
+        stackh = stackh * (bspline_prefilter_mask(grid) if prefilter is None else prefilter)
     return irfft2(stackh, grid.nx)
 
 

@@ -10,6 +10,11 @@
   ``float``, ``int``, ``.item()``, ``.tolist()`` or ``.cpu()`` of a device
   tensor), counted in ``waits`` by site whether or not a profiler runs,
   and traced as the span ``wait.<site>``;
+- ``graph_frames``: how the coupled driver ran its frames, counted whether
+  or not a profiler runs: ``captured`` (CUDA graphs captured),
+  ``replayed`` (frames run as one graph replay, the capturing call's
+  included) and ``eager.<reason>`` (frames run op by op, by the first
+  reason in ``GRAPH_REASONS`` that holds);
 - ``profile_trace``: context manager around ``torch.profiler`` (the CPU,
   and the card where there is one) writing a trace directory that
   TensorBoard's profiler plugin or Perfetto read, stages and waits
@@ -28,8 +33,9 @@ import contextlib
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-__all__ = ["span", "wait", "waits", "reset_waits", "WAIT_SITES", "profile_trace",
-           "debug_flags", "checked_step", "NonFiniteState"]
+__all__ = ["span", "wait", "waits", "reset_waits", "WAIT_SITES", "GRAPH_REASONS",
+           "graph_frames", "reset_graph_frames", "profile_trace", "debug_flags",
+           "checked_step", "NonFiniteState"]
 
 _NULL_SPAN = contextlib.nullcontext()
 
@@ -44,6 +50,20 @@ waits = {site: 0 for site in WAIT_SITES}
 def reset_waits() -> None:
     for site in waits:
         waits[site] = 0
+
+
+# why a frame of the coupled driver runs eager and not as a CUDA graph: the
+# state is not on the card, something requires grad (or remat is on), the
+# ray step waits on the device inside the frame, the steppers' forward-Euler
+# bootstrap (a branch on the host's step count), the frame's first call
+GRAPH_REASONS = ("cpu", "grad", "loop", "bootstrap", "first_call")
+# the coupled driver's frames by how they ran, counted by the driver
+graph_frames = {"captured": 0, "replayed": 0, **{"eager." + r: 0 for r in GRAPH_REASONS}}
+
+
+def reset_graph_frames() -> None:
+    for key in graph_frames:
+        graph_frames[key] = 0
 
 
 def span(name: str):

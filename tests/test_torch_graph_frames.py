@@ -1,0 +1,330 @@
+"""The coupled driver's frames as CUDA graphs (``coupled/driver``).
+
+On the CPU: the rule that decides whether a frame may replay as a graph
+(``eager_reason``), the count of eager frames, the ordered copy of a
+frame's outputs into its buffers, the buffers cloned from the state, a
+caller's state never written, and the whole mechanism against eager
+frames with the CUDA graph emulated by an op log (``_OpLogGraph``: every op the capture runs is recorded, its
+writes undone, and a replay runs the ops again into the same tensors).
+
+On the card (marked ``cuda``, skipped without one): graphed frames held
+bit-equal to eager frames over at least three replays at 64^2 and 4,096
+packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5 and
+the flow frame of each command-line setup; a restore into a graphed
+driver; a caller's initial state left untouched; the table kernel run
+once a step by the replays, as a profiler trace finds it, with no host
+launch counted. These import no JAX:
+
+    python -m pytest --noconftest -q tests/test_torch_graph_frames.py
+"""
+import contextlib
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._pytree import tree_leaves  # noqa: E402
+
+from juliaraytracingsw_tpu_torch.coupled import driver as drv_mod  # noqa: E402
+from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
+from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops import ray_step  # noqa: E402
+from juliaraytracingsw_tpu_torch.utils import observability as obs  # noqa: E402
+
+K = 4          # flow steps a frame
+FRAMES = 5     # frames after the bootstrap: one eager, one captured, three more replays
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA (a CUDA graph has no CPU mode)")
+    return "cuda"
+
+
+def _argv(cmd: str, platform: str, nx: int, sqrtp: int, *extra: str) -> list[str]:
+    return [cmd, "--nx", str(nx), "--sqrt-npackets", str(sqrtp), "--interp", "bilinear",
+            "--table-dtype", "bfloat16", "--gather", "patch", "--seed", "3",
+            "--platform", platform, *extra]
+
+
+def _driver(cmd: str, platform: str, nx: int, sqrtp: int, *extra: str, **changes):
+    """(driver, case) of a command line, the driver changed by ``changes``
+    and started from the case's state."""
+    args = cli.build_parser().parse_args(_argv(cmd, platform, nx, sqrtp, *extra))
+    case = cli.SETUPS[args.cmd](args, *(() if cmd == "single-wave" else (lambda s: None,)))
+    drv = cli.make_driver(args, case, log_fn=lambda s: None)
+    if changes:
+        drv = dataclasses.replace(drv, **changes)
+    drv.init(case.sol0, case.packets, clock=cli.start_clock(case, case.sol0.device))
+    return drv, case
+
+
+def _copy(sim):
+    """A copy of a state that later frames cannot touch."""
+    return type(sim)(*(_copy(v) for v in sim)) if isinstance(sim, tuple) else (
+        sim.clone() if isinstance(sim, torch.Tensor) else sim)
+
+
+def _assert_equal(a, b):
+    fa, fb = _flatten(a), _flatten(b)
+    assert [p for p, _ in fa] == [p for p, _ in fb]
+    for (path, x), (_, y) in zip(fa, fb):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), path
+        else:
+            assert x == y, path
+
+
+def _graphed_vs_eager(drv, kind: str, frames: int, k: int = K):
+    """Run ``frames`` frames of ``kind`` through the driver and the same
+    frames eagerly from a copy of its state, equal after each frame."""
+    ref = _copy(drv.sim)
+    frame = drv._get_frame(kind, k)
+    for _ in range(frames):
+        if kind == "coupled":
+            drv.run(1, k)
+        else:
+            drv.spinup(k, chunk=k)
+        ref = frame(ref)
+        _assert_equal(drv.sim, ref)
+
+
+# --- the rule ------------------------------------------------------------------
+
+GRAPHS = dict(device="cuda", requires_grad=False, remat=False, ray_method="rk4", step=3,
+              calls=1)
+
+
+@pytest.mark.parametrize("change,reason", [
+    (dict(device="cpu"), "cpu"),
+    (dict(device="cpu", ray_method="adaptive", step=0, calls=0), "cpu"),
+    (dict(requires_grad=True), "grad"),
+    (dict(remat=True), "grad"),
+    (dict(ray_method="adaptive"), "loop"),
+    (dict(ray_method="adaptive7"), "loop"),
+    (dict(ray_method="midpoint"), "loop"),
+    (dict(step=2), "bootstrap"),
+    (dict(step=0, calls=0), "bootstrap"),
+    (dict(calls=0), "first_call"),
+    ({}, None),
+    (dict(ray_method="dopri5", step=1000, calls=7), None),
+    (dict(ray_method=None), None),
+], ids=lambda v: repr(v) if isinstance(v, (dict, str, type(None))) else None)
+def test_eager_reason(change, reason):
+    assert drv_mod.eager_reason(**{**GRAPHS, **change}) == reason
+    assert reason is None or reason in obs.GRAPH_REASONS
+
+
+def test_cpu_driver_counts_eager_cpu_frames():
+    drv, _ = _driver("rsw", "cpu", 32, 8)
+    obs.reset_graph_frames()
+    drv.spinup(6, chunk=3)
+    drv.run(3, 2)
+    assert obs.graph_frames == {**{key: 0 for key in obs.graph_frames}, "eager.cpu": 5}
+    assert not drv._graphs
+
+
+@pytest.mark.parametrize("case", ["ab3_shift", "view"])
+def test_copy_back_reads_each_buffer_first(case):
+    n1, n2, sol = (torch.full((3,), float(v)) for v in (1, 2, 3))
+    new = torch.full((3,), 4.0)
+    # buffers (sol, N1, N2); the outputs N1 <- new, N2 <- N1 (or a view of
+    # it), listed in the order that would lose N1
+    out = [sol, new, n1 if case == "ab3_shift" else n1.view(1, 3)[0]]
+    drv_mod._copy_back([sol, n1, n2], out)
+    assert (float(sol[0]), float(n1[0]), float(n2[0])) == (3.0, 4.0, 1.0)
+
+
+def test_buffers_clone_the_state():
+    """A graph's buffers are copies of the state, one for each tensor even
+    where the state's tensors alias; the state it returns holds them."""
+    drv, case = _driver("rsw", "cpu", 32, 8)
+    drv.spinup(4, chunk=4)
+    drv.run(1, 1)
+    sim = drv.sim
+    n1 = sim.stepper_state.N1
+    sim = sim._replace(stepper_state=type(sim.stepper_state)(n1, n1))
+    graph = drv_mod._FrameGraph(drv._get_frame("coupled", 1), "coupled", 1)
+    static = graph.buffers(sim)
+    leaves, buffers = drv_mod._carried(sim, "coupled"), drv_mod._carried(static, "coupled")
+    assert buffers == graph.static
+    ptrs = {t.untyped_storage().data_ptr() for t in leaves}
+    assert len({t.untyped_storage().data_ptr() for t in buffers} | ptrs) == len(buffers) + len(ptrs)
+    for t, s in zip(leaves, buffers):
+        assert torch.equal(t, s)
+    assert static.clock.step == sim.clock.step
+
+
+# --- the mechanism, with the graph emulated on the CPU -------------------------
+
+class _OpLog(TorchDispatchMode):
+    """Runs and records every op; undoes each write at the end, as a
+    capture runs nothing."""
+
+    def __init__(self, graph):
+        super().__init__()
+        self.graph, self.saved = graph, {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        for arg, value in zip(func._schema.arguments, args):
+            if arg.alias_info is not None and arg.alias_info.is_write:
+                self.saved.setdefault(id(value), (value, value.clone()))
+        out = func(*args, **kwargs)
+        self.graph.ops.append((func, args, kwargs, out))
+        return out
+
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        with torch.no_grad():
+            for value, old in self.saved.values():
+                value.copy_(old)
+        return out
+
+
+class _OpLogGraph:
+    def __init__(self):
+        self.ops = []
+
+    def replay(self):
+        with torch.no_grad():
+            for func, args, kwargs, out in self.ops:
+                new = func(*args, **kwargs)
+                for o, n in zip(tree_leaves(out), tree_leaves(new)):
+                    if isinstance(o, torch.Tensor) and o is not n:
+                        o.copy_(n)
+
+
+@pytest.fixture
+def emulated_graphs(monkeypatch):
+    """The driver takes the CPU for a card and a CUDA graph for an op log."""
+    decide = drv_mod.eager_reason
+    monkeypatch.setattr(drv_mod, "eager_reason",
+                        lambda device, *a: decide("cuda", *a))
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _OpLogGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _OpLog)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    obs.reset_graph_frames()
+
+
+@pytest.mark.parametrize("kind,extra,changes,k", [
+    ("coupled", ("--ray-method", "rk4"), dict(k_cutoff="near"), K),
+    ("coupled", ("--ray-method", "rk4", "--birth-death", "--bd-lam", "0.05"), {}, K),
+    ("coupled", ("--ray-method", "dopri5"), {}, K),
+    ("coupled", ("--ray-method", "rk4"), {}, 1),
+    ("flow", (), {}, K),
+], ids=["rk4_cutoff", "rk4_birth_death", "dopri5", "rk4_one_step", "flow"])
+def test_emulated_graph_frames_match_eager(emulated_graphs, kind, extra, changes, k):
+    drv, case = _driver("rsw", "cpu", 32, 8, *extra)
+    if changes.get("k_cutoff") == "near":
+        drv = dataclasses.replace(drv, k_cutoff=1.0005 * drv.k0)
+        drv.init(case.sol0, case.packets)
+    sol0, pk0 = _copy(case.sol0), _copy(case.packets)
+    drv.spinup(4, chunk=4)
+    _graphed_vs_eager(drv, kind, FRAMES, k)
+    # a coupled frame's first call runs eager; the flow frame's ran in the spin-up
+    assert obs.graph_frames["captured"] == 1
+    assert obs.graph_frames["replayed"] == FRAMES - (kind == "coupled")
+    _assert_equal(case.sol0, sol0)
+    _assert_equal(case.packets, pk0)
+
+
+def test_caller_state_put_in_place_is_never_written(emulated_graphs):
+    """A caller's state put in ``drv.sim`` (its AB3 state shifted into
+    place by a 1-step eager frame, then captured and replayed) is never
+    written, and the frames match eager frames from a copy of it."""
+    drv, _ = _driver("rsw", "cpu", 32, 8, "--ray-method", "rk4")
+    drv.spinup(4, chunk=4)
+    mine = _copy(drv.sim)
+    kept = _copy(mine)
+    drv.sim = mine
+    _graphed_vs_eager(drv, "coupled", 4, 1)
+    assert obs.graph_frames["captured"] == 1 and obs.graph_frames["replayed"] == 3
+    _assert_equal(mine, kept)
+    drv.sim = mine
+    drv.run(1, 1)
+    _assert_equal(mine, kept)
+    _assert_equal(drv.sim, drv._get_frame("coupled", 1)(kept))
+
+
+# --- on the card ---------------------------------------------------------------
+
+NX, SQRTP = 64, 64
+
+
+@pytest.mark.cuda
+def test_rk4_graph_frames_match_eager(cuda_device):
+    """RK4 with a k-cutoff that resets packets: bit-equal frames, one
+    capture, the table kernel counted once a step, the caller's state
+    untouched."""
+    drv, case = _driver("rsw", cuda_device, NX, SQRTP, "--ray-method", "rk4")
+    drv = dataclasses.replace(drv, k_cutoff=1.0005 * drv.k0)
+    drv.init(case.sol0, case.packets)
+    sol0, pk0 = _copy(case.sol0), _copy(case.packets)
+    obs.reset_graph_frames()
+    drv.spinup(4, chunk=4)
+    _graphed_vs_eager(drv, "coupled", FRAMES)
+    launches = ray_step.table_launches["bilinear"]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        drv.run(3, K)
+        torch.cuda.synchronize()
+    # the replays run the table kernel once a step, with no host launch
+    assert sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+               and "ray_step_table_kernel" in e.name) == 3 * K
+    assert ray_step.table_launches["bilinear"] == launches
+    assert obs.graph_frames == {**{key: 0 for key in obs.graph_frames}, "captured": 1,
+                                "replayed": FRAMES + 2, "eager.bootstrap": 1,
+                                "eager.first_call": 1}
+    reset = (drv.sim.packets.k == drv.k0) & (drv.sim.packets.l == 0)
+    assert int(reset.sum()) > int(((pk0.k == drv.k0) & (pk0.l == 0)).sum())
+    _assert_equal(case.sol0, sol0)
+    _assert_equal(case.packets, pk0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [("--ray-method", "rk4", "--birth-death", "--bd-lam", "0.05"),
+                                   ("--ray-method", "dopri5")],
+                         ids=["rk4_birth_death", "dopri5"])
+def test_coupled_graph_frames_match_eager(cuda_device, extra):
+    drv, _ = _driver("rsw", cuda_device, NX, SQRTP, *extra)
+    obs.reset_graph_frames()
+    drv.spinup(4, chunk=4)
+    _graphed_vs_eager(drv, "coupled", FRAMES)
+    assert obs.graph_frames["captured"] == 1
+    assert obs.graph_frames["replayed"] == FRAMES - 1
+    if drv.birth_death:
+        assert int(drv.sim.bd.births) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd", sorted(cli.SETUPS))
+def test_flow_graph_frames_match_eager(cuda_device, cmd):
+    drv, _ = _driver(cmd, cuda_device, NX, SQRTP)
+    obs.reset_graph_frames()
+    _graphed_vs_eager(drv, "flow", FRAMES + 1)
+    assert obs.graph_frames["captured"] == 1
+    assert obs.graph_frames["replayed"] == FRAMES
+    assert obs.graph_frames["eager.bootstrap"] == 1
+
+
+@pytest.mark.cuda
+def test_restore_into_graphed_driver(cuda_device, tmp_path):
+    drv, _ = _driver("rsw", cuda_device, NX, SQRTP, "--ray-method", "rk4")
+    drv.spinup(4, chunk=4)
+    drv.run(3, K)
+    path = str(tmp_path / "state.npz")
+    drv.checkpoint(path)
+    saved = _copy(drv.sim)
+    drv.run(2, K)
+    after = _copy(drv.sim)
+    obs.reset_graph_frames()
+    drv.restore(path)
+    _assert_equal(drv.sim, saved)
+    drv.run(2, K)
+    _assert_equal(drv.sim, after)
+    assert obs.graph_frames == {**{key: 0 for key in obs.graph_frames}, "replayed": 2}
