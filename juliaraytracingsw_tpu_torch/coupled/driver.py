@@ -32,8 +32,9 @@ and every replay leaves its result there, so ``drv.sim``'s tensors are
 the driver's own, overwritten by the next frame: copy them to keep them.
 ``observability.graph_frames`` counts how each frame ran
 (``eager.<reason>`` from ``observability.GRAPH_REASONS``). The kernels'
-launch counters (``ops/ray_step``, ``ops/birth_death``) count the host's
-launches, a capture's included; a replay runs the kernels it holds with
+launch counters (``ops/ray_step``, ``ops/birth_death``) and the taps
+gathers' (``rays/interp.taps_gathers``) count the host's launches, a
+capture's included; a replay runs the kernels it holds with
 no host call, and counts only in ``graph_frames["replayed"]``.
 
 The host waits on the device once per frame, in the NaN guard, and again
@@ -44,10 +45,11 @@ line's two scalars. Every such wait is counted by site in
 stage is a span (``utils/observability.span``): ``frame.coupled``/
 ``frame.flow`` around a frame (around its replay, for a graph),
 ``flow.step``, ``rays.fields``, ``rays.table``, ``rays.step`` or
-``rays.adaptive``, ``rays.reset``, ``rays.birth_death`` inside an eager
-frame, and ``driver.nan_guard``, ``driver.diagnostics``,
-``driver.outputs``, ``driver.live``, ``driver.log`` after it, each wait a
-span ``wait.<site>``. Everything in a frame is differentiable but the
+``rays.adaptive`` (on the taps path a ``rays.taps`` in it a stage),
+``rays.reset``, ``rays.birth_death`` inside an eager frame, and
+``driver.nan_guard``, ``driver.diagnostics``, ``driver.outputs``,
+``driver.live``, ``driver.log`` after it, each wait a span
+``wait.<site>``. Everything in a frame is differentiable but the
 adaptive integrator's 'while' loop and its fused attempt, which are
 forward only, as in the reference.
 """

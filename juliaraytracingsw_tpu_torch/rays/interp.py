@@ -13,7 +13,10 @@ patch path is held against, and the sampler of ``rays/raytrace``'s
   derivatives.
 
 All take field stacks ``(F, ny, nx)`` and query points ``(N,)`` and return
-``(F, N)``.
+``(F, N)``. Each call gathers its taps in one ``index_select``
+(``_gather_taps``), counted by interp in ``taps_gathers``: host calls,
+a CUDA graph's capture included; a replay runs the gathers it holds with
+no host call and counts nothing.
 """
 from __future__ import annotations
 
@@ -21,7 +24,10 @@ import numpy as np
 import torch
 
 __all__ = ["bicubic_hermite", "bilinear", "bspline", "bspline_prefilter_mask",
-           "interpolate"]
+           "interpolate", "taps_gathers"]
+
+# host calls of ``_gather_taps`` by interp
+taps_gathers = {"bilinear": 0, "bspline": 0, "bicubic": 0}
 
 
 def bspline_prefilter_mask(grid) -> torch.Tensor:
@@ -48,9 +54,11 @@ def _wrap(i, n):
     return torch.remainder(i, n)
 
 
-def _gather_taps(fields, tap_flat_idx):
+def _gather_taps(fields, tap_flat_idx, interp: str):
     """One flat gather for all fields x taps: fields (F, ny, nx),
-    tap_flat_idx (T, N) flattened yx indices -> (F, T, N)."""
+    tap_flat_idx (T, N) flattened yx indices -> (F, T, N); counted in
+    ``taps_gathers[interp]``."""
+    taps_gathers[interp] += 1
     F, ny, nx = fields.shape
     T, N = tap_flat_idx.shape
     offs = (torch.arange(F, dtype=tap_flat_idx.dtype, device=fields.device)
@@ -69,7 +77,7 @@ def bilinear(fields, xq, yq, x0, y0, dx, dy):
     taps = torch.stack([
         iy0w * nx + ix0, iy0w * nx + ix1, iy1 * nx + ix0, iy1 * nx + ix1,
     ])
-    g = _gather_taps(fields, taps)          # (F, 4, N)
+    g = _gather_taps(fields, taps, "bilinear")   # (F, 4, N)
     b = g[:, 0] + ax * (g[:, 1] - g[:, 0])
     t = g[:, 2] + ax * (g[:, 3] - g[:, 2])
     return b + ay * (t - b)
@@ -96,7 +104,7 @@ def bspline(coeff_fields, xq, yq, x0, y0, dx, dy):
         iy = _wrap(iy0 + (jy - 1), ny)
         for jx in range(4):
             taps.append(iy * nx + _wrap(ix0 + (jx - 1), nx))
-    g = _gather_taps(coeff_fields, torch.stack(taps))   # (F, 16, N)
+    g = _gather_taps(coeff_fields, torch.stack(taps), "bspline")   # (F, 16, N)
     out = None
     for jy in range(4):
         row = None
@@ -128,7 +136,7 @@ def bicubic_hermite(f, fx, fy, fxy, xq, yq, x0, y0, dx, dy):
     taps = torch.stack([
         iy0w * nx + ix0w, iy0w * nx + ix1, iy1 * nx + ix0w, iy1 * nx + ix1,
     ])
-    g = _gather_taps(torch.cat([f, fx, fy, fxy]), taps)   # (4F, 4, N)
+    g = _gather_taps(torch.cat([f, fx, fy, fxy]), taps, "bicubic")   # (4F, 4, N)
 
     def corners(block, scale):
         c = g[block * F:(block + 1) * F] * scale

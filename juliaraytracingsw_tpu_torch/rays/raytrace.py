@@ -175,11 +175,13 @@ def _rhs(p: Packets, sample, a, rp: RayParams) -> Packets:
 
 
 def _make_taps_sampler(fields_old, fields_new, rp: RayParams):
-    """Global-gather sampler: blend the full field stacks, then gather."""
+    """Global-gather sampler: blend the full field stacks, then gather; each
+    sample is the span ``rays.taps`` under a profiler."""
 
     def sample(qx, qy, a):
-        return interpolate(blend(fields_old, fields_new, a), qx, qy, rp.x0, rp.y0,
-                           rp.dx, rp.dy, method=rp.interp)
+        with observability.span("rays.taps"):
+            return interpolate(blend(fields_old, fields_new, a), qx, qy, rp.x0, rp.y0,
+                               rp.dx, rp.dy, method=rp.interp)
 
     return sample
 

@@ -9,11 +9,12 @@ writes undone, and a replay runs the ops again into the same tensors).
 
 On the card (marked ``cuda``, skipped without one): graphed frames held
 bit-equal to eager frames over at least three replays at 64^2 and 4,096
-packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5 and
-the flow frame of each command-line setup; a restore into a graphed
-driver; a caller's initial state left untouched; the table kernel run
-once a step by the replays, as a profiler trace finds it, with no host
-launch counted. These import no JAX:
+packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5, the
+two-layer RK4 frame on the taps path and the flow frame of each
+command-line setup; a restore into a graphed driver; a caller's initial
+state left untouched; the table kernel run once a step and the taps
+gather once a stage by the replays, as a profiler trace finds them, with
+no host launch counted. These import no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_graph_frames.py
 """
@@ -32,6 +33,7 @@ from juliaraytracingsw_tpu_torch.coupled import driver as drv_mod  # noqa: E402
 from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
 from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten  # noqa: E402
 from juliaraytracingsw_tpu_torch.ops import ray_step  # noqa: E402
+from juliaraytracingsw_tpu_torch.rays import interp  # noqa: E402
 from juliaraytracingsw_tpu_torch.utils import observability as obs  # noqa: E402
 
 K = 4          # flow steps a frame
@@ -211,15 +213,16 @@ def emulated_graphs(monkeypatch):
     obs.reset_graph_frames()
 
 
-@pytest.mark.parametrize("kind,extra,changes,k", [
-    ("coupled", ("--ray-method", "rk4"), dict(k_cutoff="near"), K),
-    ("coupled", ("--ray-method", "rk4", "--birth-death", "--bd-lam", "0.05"), {}, K),
-    ("coupled", ("--ray-method", "dopri5"), {}, K),
-    ("coupled", ("--ray-method", "rk4"), {}, 1),
-    ("flow", (), {}, K),
-], ids=["rk4_cutoff", "rk4_birth_death", "dopri5", "rk4_one_step", "flow"])
-def test_emulated_graph_frames_match_eager(emulated_graphs, kind, extra, changes, k):
-    drv, case = _driver("rsw", "cpu", 32, 8, *extra)
+@pytest.mark.parametrize("cmd,kind,extra,changes,k", [
+    ("rsw", "coupled", ("--ray-method", "rk4"), dict(k_cutoff="near"), K),
+    ("rsw", "coupled", ("--ray-method", "rk4", "--birth-death", "--bd-lam", "0.05"), {}, K),
+    ("rsw", "coupled", ("--ray-method", "dopri5"), {}, K),
+    ("rsw", "coupled", ("--ray-method", "rk4"), {}, 1),
+    ("rsw", "flow", (), {}, K),
+    ("twolayer", "coupled", ("--ray-method", "rk4", "--gather", "taps"), {}, K),
+], ids=["rk4_cutoff", "rk4_birth_death", "dopri5", "rk4_one_step", "flow", "twolayer_taps"])
+def test_emulated_graph_frames_match_eager(emulated_graphs, cmd, kind, extra, changes, k):
+    drv, case = _driver(cmd, "cpu", 32, 8, *extra)
     if changes.get("k_cutoff") == "near":
         drv = dataclasses.replace(drv, k_cutoff=1.0005 * drv.k0)
         drv.init(case.sol0, case.packets)
@@ -299,6 +302,33 @@ def test_coupled_graph_frames_match_eager(cuda_device, extra):
     assert obs.graph_frames["replayed"] == FRAMES - 1
     if drv.birth_death:
         assert int(drv.sim.bd.births) > 0
+
+
+@pytest.mark.cuda
+def test_twolayer_taps_graph_frames_match_eager(cuda_device):
+    """Two-layer RK4 frames on the taps path: bit-equal frames, one
+    capture, then replays that run the taps gather once a stage with no
+    host call (PyTorch runs ``_gather_taps``'s 1-D ``index_select`` as
+    its gather kernel)."""
+    drv, _ = _driver("twolayer", cuda_device, NX, SQRTP, "--ray-method", "rk4",
+                     "--gather", "taps", "--table-dtype", "float32")
+    assert drv.rp.gather == "taps"
+    obs.reset_graph_frames()
+    drv.spinup(4, chunk=4)
+    _graphed_vs_eager(drv, "coupled", FRAMES)
+    assert obs.graph_frames["captured"] == 1
+    assert obs.graph_frames["replayed"] == FRAMES - 1
+    gathers = dict(interp.taps_gathers)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        drv.run(3, K)
+        torch.cuda.synchronize()
+    runs = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
+               and "_scatter_gather_elementwise_kernel" in e.name)
+    assert runs == 4 * 3 * K
+    assert interp.taps_gathers == gathers
+    assert obs.graph_frames["captured"] == 1
+    assert obs.graph_frames["replayed"] == FRAMES + 2
 
 
 @pytest.mark.cuda
