@@ -8,8 +8,8 @@ without them, and on any failed check. Phases, each printing its lines:
 1. environment: torch/CUDA versions, the card's name and power limit, and
    the build of the kernels (``csrc/ray_step.cu``, the fused RK4 substep,
    ``csrc/ray_attempt.cu``, the fused DP5(4) attempt, each in its first cut
-   and its table form, and the probe kernels' three sources) by nvcc, one
-   process per source;
+   and its table form, ``csrc/pair_table.cu``, the pair table, and the
+   probe kernels' three sources) by nvcc, one process per source;
 2. the RK4 kernel against its plain PyTorch twin at N = 1,048,576 packets
    for each interpolation (bilinear, bspline, bicubic): the first cut on
    rows gathered from the float32 table, the table form reading the
@@ -25,6 +25,10 @@ without them, and on any failed check. Phases, each printing its lines:
    (``csrc/probe_copy.cu``, ``csrc/probe_gather.cu``,
    ``csrc/probe_row_ring.cu``), each held bit-equal to its plain version
    and timed beside its bound and its PyTorch library call;
+2d. the pair-table kernel (``ops/pair_table``) against its twin, the roll
+   path run on the card, at 512^2 for each interp and table dtype:
+   bit-equal, both timed in a CUDA graph beside the kernel's byte bound
+   (both stacks read, the table written once);
 3. one coupled frame at 128^2 x 16,384 packets on the GPU (kernel) against
    the same frame on the CPU (twin); 3b. the same for one adaptive frame;
 4. the hero through ``CoupledDriver``: 512^2 RSW stepped by IF-AB3, coupled
@@ -107,7 +111,8 @@ without them, and on any failed check. Phases, each printing its lines:
 
 The kernels' launch counts are set to 0 before each main path (2c, 4, 4b,
 5c, 6a, each coupled case of phase 7, 8b, 8d, 9b and 9d) and read after
-it; the heroes must launch only the table forms. The wrappers' counters
+it; the heroes must launch only the table forms, and build one pair table
+a coupled step (phases 4, 4b). The wrappers' counters
 count the host's launches, and ``CoupledDriver`` replays its frames as
 CUDA graphs, which run their kernels with none: on the paths through it
 (4, 4b, 6a, the coupled cases of phase 7, 8b) the ray and birth/death
@@ -142,6 +147,9 @@ KERNEL_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_step.cu"
 REPLACES = "juliaraytracingsw_tpu/ops/pallas_ray_step.py:284"
 ATTEMPT_SOURCE = "juliaraytracingsw_tpu_torch/csrc/ray_attempt.cu"
 ATTEMPT_REPLACES = "juliaraytracingsw_tpu/ops/pallas_ray_step.py:462"
+PAIR_SOURCE = "juliaraytracingsw_tpu_torch/csrc/pair_table.cu"
+PAIR_REPLACES = ("juliaraytracingsw_tpu/rays/patch.py:91 (build_pair_table_direct), "
+                 "juliaraytracingsw_tpu/rays/raytrace.py:198 (build_pair's roll path)")
 # the probe kernels' rows in the kernels line: (module, probe-name prefix,
 # source, the Pallas kernels replaced), each the probe at the shapes nearest
 # the ray path's gather
@@ -361,6 +369,52 @@ def phase_kernels(card: str, device, n: int = 1 << 20, nx: int = 512) -> tuple[d
     return results, attempts, tables, table_attempts
 
 
+def phase_pair_table(card: str, device, ny: int = 512, nx: int = 512) -> dict:
+    """2d: the pair-table kernel (``ops/pair_table``) against its twin, the
+    roll path, run on the card, for each interp and table dtype at the
+    hero's grid: bit-equal, both timed in a CUDA graph. The bound reads both
+    (NCH, ny, nx) float32 stacks and writes the table once; no one PyTorch
+    call builds it."""
+    from juliaraytracingsw_tpu_torch.ops import pair_table as pt
+    from juliaraytracingsw_tpu_torch.ops.ray_step import n_channels
+    from juliaraytracingsw_tpu_torch.profiling._timing import bound_ms, device_ms, time_ms
+
+    rows = {}
+    rng = np.random.default_rng(5)
+    for interp in INTERPS:
+        fo, fn = (torch.as_tensor(rng.standard_normal((n_channels(interp), ny, nx))
+                                  .astype(np.float32), device=device) for _ in range(2))
+        for dtype in TABLE_DTYPES:
+            def kernel():
+                return pt.pair_table(fo, fn, interp=interp, table_dtype=dtype)
+
+            def twin():
+                return pt.pair_table_torch(fo, fn, interp, dtype)
+
+            out, ref = kernel(), twin()
+            torch.cuda.synchronize()
+            bits = torch.int16 if out.dtype == torch.bfloat16 else torch.int32
+            equal = out.shape == ref.shape and torch.equal(out.view(bits), ref.view(bits))
+            if not equal:
+                raise AssertionError(f"2d: pair table {interp} {dtype} differs from its twin")
+            nbytes = 2 * fo.numel() * 4 + out.numel() * out.element_size()
+            shape = tuple(out.shape)
+            del out, ref
+            ms, eager_ms, plain_ms = device_ms(kernel), time_ms(kernel), device_ms(twin)
+            bound = bound_ms(nbytes)
+            print(f"pair table kernel {interp}, {dtype} table {shape}, bit-equal to the "
+                  f"twin: {ms:.4f} ms ({eager_ms:.4f} ms eager), twin {plain_ms:.4f} ms "
+                  f"({plain_ms / ms:.1f}x); {nbytes / 1e6:.1f} MB at least -> "
+                  f"{nbytes / 1e6 / ms:.0f} GB/s, bound {bound:.4f} ms ({100 * bound / ms:.1f}% "
+                  f"of it) [{card}]", flush=True)
+            rows[interp, dtype] = dict(max_abs_err=0.0, bit_equal=True, ms=ms, eager_ms=eager_ms,
+                                       plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                                       library_ms=None)
+        del fo, fn
+        torch.cuda.empty_cache()
+    return rows
+
+
 def compare(card: str, what: str, n: int, nbytes: float, kernel, twin) -> dict:
     """Hold ``kernel()`` against ``twin()`` (rtol KERNEL_RTOL, atol
     KERNEL_ATOL on every row) and time both on the device as the probes are
@@ -568,6 +622,7 @@ def hero(card: str, device, interp: str, spinup_steps: int, n_frames: int,
     res["attempt_launches"] = runs["table attempt"]
     res["first_cut_launches"] = runs["first cut"]
     res["bd_launches"] = runs["birth_death"]
+    res["pair_table_runs"] = runs["pair table"]
     res["attempts"] = sum(int(i["n_accepted"]) + int(i["n_rejected"])
                           for i in drv.ray_infos)
     res["coupled_steps"] = n_frames * flow_steps
@@ -615,6 +670,7 @@ def launch_counts() -> dict:
 
 # the hand-written kernels by the names they run under on the card
 KERNEL_NAMES = {"table": ("ray_step_table_kernel",),
+                "pair table": ("pair_table_kernel",),
                 "table attempt": ("ray_attempt_table_kernel",),
                 "first cut": ("ray_step_kernel", "ray_attempt_kernel"),
                 "birth_death": ("birth_death_kernel",)}
@@ -1901,8 +1957,8 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
                        sqrtp: int = 1024, spinup_steps: int = 200, n_frames: int = 4) -> dict:
     """9b: hero_sharded1 (``bench.py:226-254``): ShardedRSW at the hero's
     size on the mesh, phase 4's IC spun up ``spinup_steps`` sharded steps,
-    ``n_frames`` frames of 5 coupled steps; exactly 5 table launches a
-    frame and no first-cut launch; every frame finite, |k| < k_cutoff,
+    ``n_frames`` frames of 5 coupled steps; exactly 5 table launches and
+    5 pair-table launches a frame and no first-cut launch; every frame finite, |k| < k_cutoff,
     energy within 1%; the first frame against the replicated
     ``coupled/driver.make_coupled_frame`` from the same state (run after
     the count is read). Ray-steps/s over the last 3 frames (CUDA events)
@@ -1912,7 +1968,7 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
     from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
     from juliaraytracingsw_tpu_torch.models import rsw
     from juliaraytracingsw_tpu_torch.models.base import build_stepper
-    from juliaraytracingsw_tpu_torch.ops import ray_step
+    from juliaraytracingsw_tpu_torch.ops import pair_table, ray_step
     from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets, shard_packets
     from juliaraytracingsw_tpu_torch.parallel.sharded_rsw import ShardedRSW
     from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
@@ -1932,6 +1988,7 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
     start = (sol, clock, state, pk)
     e0 = float(rsw.total_energy(sh.unshard(sol), grid, model.params))
     ray_step.reset_launches()
+    pairs0 = pair_table.pair_table_launches["bilinear"]
     first_cut0 = launch_counts()["first cut"]
     marks = [torch.cuda.Event(enable_timing=True)]
     marks[-1].record()
@@ -1945,6 +2002,7 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
     torch.cuda.synchronize()
     launches = ray_step.table_launches["bilinear"]
     others = {k: v for k, v in ray_step.table_launches.items() if k != "bilinear"}
+    pairs = pair_table.pair_table_launches["bilinear"] - pairs0
     first_cut = launch_counts()["first cut"] - first_cut0
     frame_ms = [a.elapsed_time(b) for a, b in zip(marks[:-1], marks[1:])]
     steady = frame_ms[1:] or frame_ms
@@ -1965,7 +2023,7 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
     got_pk = gather_packets(first[1], mesh)
     pk_err = max(sharded_close(getattr(got_pk, c), getattr(ref.packets, c), f"9b packets.{c}",
                                packets=True) for c in "xykl")
-    res = dict(launches=launches, first_cut=first_cut, frame_ms=frame_ms,
+    res = dict(launches=launches, pair_launches=pairs, first_cut=first_cut, frame_ms=frame_ms,
                coupled_steps_per_s=rate, ray_steps_per_s=rate * n,
                vs_replicated=rate * n / replicated_ray_steps_per_s, kmax=kmax, dE=dE,
                finite=finite, collectives=dict(mesh.counts))
@@ -1974,14 +2032,16 @@ def phase_hero_sharded(card: str, mesh, replicated_ray_steps_per_s: float, nx: i
           f"{rate:.2f} coupled steps/s, {res['ray_steps_per_s']:.4e} ray-steps/s over the "
           f"last {len(steady)} frames (frame ms {', '.join(f'{m:.2f}' for m in frame_ms)}); "
           f"hero_sharded1_vs_replicated {res['vs_replicated']:.3f} (phase 4: "
-          f"{replicated_ray_steps_per_s:.4e}); table kernel launches {launches}, first-cut "
+          f"{replicated_ray_steps_per_s:.4e}); table kernel launches {launches}, pair-table "
+          f"launches {pairs}, first-cut "
           f"{first_cut}; first frame vs the replicated frame: sol rel err {sol_err:.3e}, "
           f"packets rel err {pk_err:.3e}; max |k| {kmax:.3f} (cutoff {K_CUTOFF}); energy "
           f"change {dE:.3e}; finite {finite}; collectives so far {dict(mesh.counts)} "
           f"[{card}]", flush=True)
-    if launches != 5 * n_frames or first_cut or any(others.values()):
+    if launches != 5 * n_frames or pairs != 5 * n_frames or first_cut or any(others.values()):
         raise AssertionError(f"9b: launched {launches} bilinear table kernels ({others} "
-                             f"others, {first_cut} first cut), not {5 * n_frames}")
+                             f"others, {first_cut} first cut) and {pairs} pair-table "
+                             f"kernels, not {5 * n_frames} each")
     if not (finite and kmax < K_CUTOFF and dE < 0.01):
         raise AssertionError("9b: hero_sharded1 failed its checks")
 
@@ -2160,6 +2220,7 @@ def main() -> int:
     kernels, attempts, tables, table_attempts = phase_kernels(card, device)
     first_cut_counts = dict(ray_step.launches)
     first_cut_attempt_counts = dict(ray_step.attempt_launches)
+    pair_rows = phase_pair_table(card, device)
     probe_rows, probe_counts = phase_probes(card, device)
     phase_gpu_vs_cpu(device)
     phase_gpu_vs_cpu(device, "adaptive", HERO_ADAPTIVE)
@@ -2173,6 +2234,7 @@ def main() -> int:
     rows = [main_run] + [hero(card, device, interp, spinup_steps=0, n_frames=2)[0]
                          for interp in INTERPS[1:]]
     check_rows(rows, INTERPS)
+    pair_counts = {interp: res["pair_table_runs"] for interp, res in zip(INTERPS, rows)}
     counts = {interp: res["launches"] for interp, res in zip(INTERPS, rows)}
 
     # the adaptive main path: its launches are counted from 0 again
@@ -2187,6 +2249,11 @@ def main() -> int:
     if any(ray_step.table_launches.values()) or any(res["launches"] for res in ad_rows):
         raise AssertionError(f"the adaptive path launched RK4 kernels: "
                              f"{ray_step.table_launches}")
+    for res in rows + ad_rows:
+        # one pair table a coupled step, on both paths
+        if res["pair_table_runs"] != res["coupled_steps"]:
+            raise AssertionError(f"{res['pair_table_runs']} pair-table kernel runs in "
+                                 f"{res['coupled_steps']} coupled steps")
     for res in ad_rows:
         # at least one attempt per coupled step, and one launch per attempt
         if not res["attempt_launches"] == res["attempts"] >= res["coupled_steps"]:
@@ -2256,6 +2323,10 @@ def main() -> int:
         {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
          "launches": probe_counts[kernel], **probe_rows[kernel]}
         for kernel, (_, _, source, replaces) in PROBE_KERNELS.items()] + [
+        {"name": f"pair_table_{interp}_{dtype}", "route": "cuda", "source": PAIR_SOURCE,
+         "replaces": PAIR_REPLACES, "launches": pair_counts[interp] if dtype == hero_dtype
+         else None, **pair_rows[interp, dtype]}
+        for interp in INTERPS for dtype in TABLE_DTYPES] + [
         # no Pallas kernel: the reference's weibull_birth_death is XLA-fused
         {"name": "birth_death", "route": "cuda", "source": BD_SOURCE, "replaces": BD_REPLACES,
          "launches": hero_bd["bd_launches"], "n": 1 << 18, **bd_rows[1 << 18],

@@ -3,11 +3,11 @@
 - ``derive_dt`` / ``derive_nu``: CFL-tuned time step and hyperviscosity.
 - ``make_coupled_frame``: K flow steps, each an IF-AB3 flow step followed
   by a ray step from the old to the new snapshot: fixed RK4, DP5 or
-  implicit-midpoint substeps through the (old, new) patch-table pair (the
-  frame carries the previous step's table as the old time level, so each
-  flow step builds one table) or through the taps path, or the adaptive
-  integrator (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg
-  7(8)), which builds its own pair table from the two snapshots; with
+  implicit-midpoint substeps through the (old|new) pair table of the two
+  snapshots (``rays/raytrace.build_pair``, one table a flow step) or
+  through the taps path, or the adaptive integrator
+  (``ray_method='adaptive'``: DP5(4), ``'adaptive7'``: Fehlberg 7(8)),
+  which builds its own pair table from the two snapshots; with
   ``birth_death`` the ensemble is resampled after each ray step
   (``rays/resample.weibull_birth_death``, one kernel launch on the card).
   With ``remat`` each interleaved step is checkpointed for the backward
@@ -32,7 +32,7 @@ and every replay leaves its result there, so ``drv.sim``'s tensors are
 the driver's own, overwritten by the next frame: copy them to keep them.
 ``observability.graph_frames`` counts how each frame ran
 (``eager.<reason>`` from ``observability.GRAPH_REASONS``). The kernels'
-launch counters (``ops/ray_step``, ``ops/birth_death``) and the taps
+launch counters (``ops/ray_step``, ``ops/pair_table``, ``ops/birth_death``) and the taps
 gathers' (``rays/interp.taps_gathers``) count the host's launches, a
 capture's included; a replay runs the kernels it holds with
 no host call, and counts only in ``graph_frames["replayed"]``.
@@ -67,9 +67,8 @@ from ..core.steppers import BOOTSTRAP_STEPS, Clock, zero_clock
 from ..models.base import Model, build_stepper
 from ..rays.interp import bspline_prefilter_mask
 from ..rays.packets import Packets
-from ..rays.patch import build_patch_table
-from ..rays.raytrace import (RayParams, _use_patch, check_ray_params, fields_from_psih,
-                             make_pair_table, raytrace, raytrace_adaptive,
+from ..rays.raytrace import (RayParams, _use_patch, build_pair, check_ray_params,
+                             fields_from_psih, raytrace, raytrace_adaptive,
                              raytrace_tables_fb, resolve_gather, sample_gradients,
                              sample_velocity)
 from ..rays.prng import prng_key
@@ -182,29 +181,25 @@ def make_coupled_frame(
     if adaptive:
         ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
 
-    def one(sol, clock, sstate, packets, fields_old, T_old, bd):
+    def one(sol, clock, sstate, packets, fields_old, bd):
         """One interleaved flow/ray step -> the next carry and the adaptive
         info (None for the fixed-step methods)."""
         t0, info = clock.t, None
         if frozen_flow:
             clock = Clock(clock.t + dt, clock.step + 1)
-            fields, T_new = fields_old, T_old
+            fields = fields_old
         else:
             with span("flow.step"):
                 sol, clock, sstate = step_fn(sol, clock, sstate)
             with span("rays.fields"):
                 fields = fields_from_psih(psih_fn(sol), grid, rp.interp, prefilter)
-            T_new = None
-            if use_patch:
-                with span("rays.table"):
-                    T_new = build_patch_table(fields, rp.interp)
         if adaptive:
             with span("rays.adaptive"):
                 packets, info = raytrace_adaptive(packets, fields_old, fields, t0, clock.t, rp,
                                                   **ray_opts)
         elif use_patch:
             with span("rays.table"):
-                T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
+                T_pair = build_pair(fields_old, fields, rp)
             with span("rays.step"):
                 packets = raytrace_tables_fb(packets, T_pair, fields_old, fields, t0, clock.t,
                                              rp, ny, nx, nsubsteps=ray_substeps,
@@ -223,17 +218,13 @@ def make_coupled_frame(
                     packets, bd, clock.t - t0, grid.Lx, grid.Ly, k0,
                     k_shape=birth_death.get("k_shape", 1.5), lam=birth_death.get("lam", 10.0),
                     x0=rp.x0, y0=rp.y0)
-        return (sol, clock, sstate, packets, fields, T_new, bd), info
+        return (sol, clock, sstate, packets, fields, bd), info
 
     def frame(sim: SimState) -> SimState:
         if birth_death is not None and sim.bd is None:
             raise ValueError("birth_death needs SimState.bd (rays/resample.init_birth_death)")
         with span("frame.coupled"):
-            T0 = None
-            if use_patch:
-                with span("rays.table"):
-                    T0 = build_patch_table(sim.fields, rp.interp)
-            carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, T0, sim.bd)
+            carry = (sim.sol, sim.clock, sim.stepper_state, sim.packets, sim.fields, sim.bd)
             for _ in range(flow_steps):
                 if remat:
                     carry, info = checkpoint(one, *carry, use_reentrant=False)
@@ -241,7 +232,7 @@ def make_coupled_frame(
                     carry, info = one(*carry)
                 if info is not None and ray_info_fn is not None:
                     ray_info_fn(info)
-            sol, clock, sstate, packets, fields, _, bd = carry
+            sol, clock, sstate, packets, fields, bd = carry
             return SimState(sol, clock, sstate, packets, fields, bd)
 
     return frame

@@ -28,7 +28,7 @@ l']; the attempt takes ``scal (5,)`` = [a0, dah, h, rtol, atol] and gives
 errors.
 
 The table forms take the pair table ``T_pair (ny*nx, 2W)`` as
-``rays/raytrace.make_pair_table`` builds it (float32 or bfloat16) and
+``rays/raytrace.build_pair`` builds it (float32 or bfloat16) and
 ``st (5, N)`` f32 = [x y k l sign], find each packet's base cell and row
 themselves, as ``rays/raytrace._gather_patch_rows`` does, and give the same
 outputs. Their twins are that gather, the transpose and the first cut's

@@ -22,8 +22,10 @@ the deltas are:
 
 Coupled rays (``make_coupled_frame``): after each flow step the
 interpolation fields are formed in y-slabs and ``all_gather``-ed to every
-rank, the patch table is built on every rank, and each rank advances its
-own packets (on the card through ``csrc/ray_step.cu``'s table form).
+rank, each (old, new) pair of stacks becomes the pair table on every rank
+(``rays/raytrace.build_pair``: on the card one ``csrc/pair_table.cu``
+launch), and each rank advances its own packets (on the card through
+``csrc/ray_step.cu``'s table form).
 
 Instantiations: ``ShardedRSW`` and its variants (``parallel/sharded_rsw``),
 and here ``ShardedTwoLayerQG``, ``ShardedSWQG``, ``ShardedThomasYamada``
@@ -41,8 +43,8 @@ from ..models import multilayerqg as _mlqg
 from ..models import twolayerqg as _tlqg
 from ..rays.interp import bspline_prefilter_mask
 from ..rays.packets import Packets
-from ..rays.patch import PATCH_SHAPES, build_patch_table
-from ..rays.raytrace import (_raytrace_taps, _use_patch, check_ray_params, make_pair_table,
+from ..rays.patch import PATCH_SHAPES
+from ..rays.raytrace import (_raytrace_taps, _use_patch, build_pair, check_ray_params,
                              raytrace_tables, resolve_gather)
 from ..rays.resample import k_cutoff_reset
 from .fft import local_irfft2, local_rfft2, padded_nkr
@@ -265,25 +267,19 @@ class ShardedSpectralModel:
         def reset(packets):
             return packets if k_cutoff is None else k_cutoff_reset(packets, k_cutoff, k0)
 
-        def trace(packets, T_old, T_new, t0, t1):
-            packets = raytrace_tables(packets, make_pair_table(T_old, T_new, rp.table_dtype),
+        def trace(packets, fields_old, fields_new, t0, t1):
+            packets = raytrace_tables(packets, build_pair(fields_old, fields_new, rp),
                                       t0, t1, rp, ny, nx, nsubsteps=ray_substeps,
                                       method=ray_method)
             return reset(packets)
 
-        def table(fields):
-            return build_patch_table(fields, rp.interp)
-
         def sequential(sol, clock, sstate, packets, fields):
-            T = table(fields) if use_patch else None
             for _ in range(flow_steps):
                 t0 = clock.t
                 sol, clock, sstate = step_fn(sol, clock, sstate)
                 fields_new = self.fields(sol)
                 if use_patch:
-                    T_new = table(fields_new)
-                    packets = trace(packets, T, T_new, t0, clock.t)
-                    T = T_new
+                    packets = trace(packets, fields, fields_new, t0, clock.t)
                 else:
                     # taps gather straight from the gathered field stacks
                     packets = reset(_raytrace_taps(packets, fields, fields_new, t0, clock.t,
@@ -294,17 +290,17 @@ class ShardedSpectralModel:
         def pipelined(sol, clock, sstate, packets, fields):
             # prologue: flow 0 -> 1 (no ray interval exists yet)
             t_prev = clock.t
-            T_prev = table(fields)
+            fields_prev = fields
             sol, clock, sstate = step_fn(sol, clock, sstate)
-            T_cur = table(self.fields(sol))
+            fields_cur = self.fields(sol)
             for _ in range(flow_steps - 1):
                 t_cur = clock.t
                 sol, clock, sstate = step_fn(sol, clock, sstate)    # -> t_{n+2}
                 gathered = self._fields_start(sol)                  # in flight
-                packets = trace(packets, T_prev, T_cur, t_prev, t_cur)
-                T_prev, T_cur, t_prev = T_cur, table(gathered()), t_cur
+                packets = trace(packets, fields_prev, fields_cur, t_prev, t_cur)
+                fields_prev, fields_cur, t_prev = fields_cur, gathered(), t_cur
             # epilogue: catch the rays up through the last interval
-            packets = trace(packets, T_prev, T_cur, t_prev, clock.t)
+            packets = trace(packets, fields_prev, fields_cur, t_prev, clock.t)
             return sol, clock, sstate, packets
 
         body = pipelined if overlap else sequential

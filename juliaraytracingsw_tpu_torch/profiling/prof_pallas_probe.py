@@ -18,8 +18,7 @@ import torch
 
 from ..ops import probes
 from ..rays.packets import Packets
-from ..rays.patch import build_patch_table
-from ..rays.raytrace import RayParams, make_pair_table, raytrace_tables
+from ..rays.raytrace import RayParams, build_pair, raytrace_tables
 from ._timing import Result, measure, time_ms
 
 NX = NY = 512
@@ -55,10 +54,10 @@ def run(device, card: str) -> list[Result]:
 
     fo, fn_ = (torch.as_tensor(rng.standard_normal((5, NY, NX)).astype(np.float32),
                                device=device) for _ in range(2))
-    T_pair = make_pair_table(build_patch_table(fo, "bilinear"), build_patch_table(fn_, "bilinear"))
-    del fo, fn_
     rp = RayParams(f=3.0, Cg=1.0, x0=-math.pi, y0=-math.pi, dx=2 * math.pi / NX,
                    dy=2 * math.pi / NY)
+    T_pair = build_pair(fo, fn_, rp)
+    del fo, fn_
     for stage, n in zip((2, 3), STAGE_N):
         xy = rng.uniform(-math.pi, math.pi, (2, n)).astype(np.float32)
         p = Packets(*(torch.as_tensor(v, device=device) for v in

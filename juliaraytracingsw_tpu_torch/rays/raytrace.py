@@ -13,8 +13,10 @@ with the flow entering through the field stack ``(5, ny, nx)`` =
 Two gather strategies, chosen by ``RayParams.gather``:
 
 - ``'patch'``: once per (old, new) pair of snapshots the fields are packed
-  into a pair table (``rays/patch``); each substep or attempt gathers one
-  row per packet and every stage interpolates locally from it;
+  into a pair table (``build_pair``: ``ops/pair_table``, one kernel launch
+  on the card; the ``rays/patch`` tables on the CPU); each substep or
+  attempt gathers one row per packet and every stage interpolates locally
+  from it;
 - ``'taps'``: every stage gathers its taps from the time-blended field
   stacks (``rays/interp``), the reference semantics the patch path is held
   against.
@@ -54,12 +56,13 @@ from typing import NamedTuple
 import torch
 
 from ..core.spectral import irfft2, spectral_gradients
+from ..ops.pair_table import pair_table
 from ..ops.ray_step import recompute_vjp, table_attempt, table_substep
 from ..utils import observability
 from .dispersion import group_velocity
 from .interp import bspline_prefilter_mask, interpolate
 from .packets import Packets
-from .patch import PATCH_SHAPES, build_patch_table, patch_interpolate_pair_shared
+from .patch import PATCH_SHAPES, patch_interpolate_pair_shared
 
 __all__ = [
     "RayParams",
@@ -157,10 +160,11 @@ def make_pair_table(T_old: torch.Tensor, T_new: torch.Tensor,
 
 
 def build_pair(fields_old, fields_new, rp: RayParams) -> torch.Tensor:
-    """(old|new) pair table of two field stacks."""
-    return make_pair_table(build_patch_table(fields_old, rp.interp),
-                           build_patch_table(fields_new, rp.interp),
-                           rp.table_dtype)
+    """(old|new) pair table of two field stacks, in ``rp.table_dtype``:
+    ``ops/pair_table.pair_table``, one kernel launch on the card, on the
+    CPU its twin ``make_pair_table`` of the two ``build_patch_table``s.
+    Differentiable with respect to both stacks."""
+    return pair_table(fields_old, fields_new, interp=rp.interp, table_dtype=rp.table_dtype)
 
 
 # --- samplers and the generic stage math -------------------------------------

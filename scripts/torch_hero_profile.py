@@ -9,13 +9,15 @@ bfloat16 patch tables) with the PyTorch port and prints:
 1. the time of each stage of one coupled step as the card runs it, taken
    apart by hand and timed with CUDA events (``_timing.time_ms``: the
    median of 3 timings of 10 calls each, called from Python, host work
-   included), among them the RK4 table kernel and the DP5(4) table attempt
-   kernel, which read the pair table themselves; the sum of the stages of
-   an RK4 step and of an adaptive step of one attempt; one whole adaptive
-   interval (``raytrace_adaptive`` at the adaptive hero's options, its
-   pair-table build and its wait on the device included); and, for
-   comparison, the first-cut path the table kernels replaced (row gather
-   and upcast, transpose, first-cut kernel);
+   included), among them the pair-table kernel that builds the table from
+   both field stacks, and the RK4 table kernel and the DP5(4) table
+   attempt kernel, which read the pair table themselves; the sum of the
+   stages of an RK4 step and of an adaptive step of one attempt; one whole
+   adaptive interval (``raytrace_adaptive`` at the adaptive hero's
+   options, its pair-table build and its wait on the device included); and, for
+   comparison, the paths the kernels replaced: the roll path of the pair
+   table (two patch tables, their concatenation and cast) and the first-cut
+   path (row gather and upcast, transpose, first-cut kernel);
 2. what a frame's outputs cost the ``CoupledDriver`` of the command line,
    host wall time (median of 5, the device idle before each): the packet
    telemetry taken apart (sampling u, v and the gradients at the packets,
@@ -54,14 +56,14 @@ from juliaraytracingsw_tpu_torch.coupled.driver import (  # noqa: E402
     CoupledDriver, SimState, make_coupled_frame)
 from juliaraytracingsw_tpu_torch.models import rsw  # noqa: E402
 from juliaraytracingsw_tpu_torch.models.base import build_stepper  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops.pair_table import pair_table_torch  # noqa: E402
 from juliaraytracingsw_tpu_torch.ops.ray_step import (  # noqa: E402
     first_cut_inputs, fused_attempt, fused_substep, table_attempt, table_substep)
 from juliaraytracingsw_tpu_torch.profiling._timing import card_line, time_ms  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets  # noqa: E402
-from juliaraytracingsw_tpu_torch.rays.patch import build_patch_table  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.raytrace import (  # noqa: E402
-    _gather_patch_rows, fields_from_psih, make_pair_table, raytrace_adaptive,
-    sample_gradients, sample_velocity)
+    _gather_patch_rows, build_pair, fields_from_psih, raytrace_adaptive, sample_gradients,
+    sample_velocity)
 from juliaraytracingsw_tpu_torch.rays.resample import k_cutoff_reset  # noqa: E402
 
 
@@ -73,21 +75,17 @@ def stages(interp: str, device) -> None:
     for _ in range(4):                      # past the Euler bootstrap
         sol, clock, ss = step(sol, clock, ss)
     fields = fields_from_psih(psih_fn(sol), grid, interp)
-    T_old = T_new = build_patch_table(fields, interp)
-    T_pair = make_pair_table(T_old, T_new, rp.table_dtype)
+    T_pair = build_pair(fields, fields, rp)
     geo = dict(ny=grid.ny, nx=grid.nx)
     st = torch.stack([p.x, p.y, p.k, p.l, p.sign])
     scal = torch.tensor([0.0, DT], device=device)
     scal5 = torch.tensor([0.0, 1.0, DT, HERO_ADAPTIVE["rtol"], HERO_ADAPTIVE["atol"]],
                          device=device)
-    # (name, fn, in the RK4 step, in an adaptive step of one attempt; the
-    # adaptive step builds both patch tables)
+    # (name, fn, in the RK4 step, in an adaptive step of one attempt)
     parts = [
         ("flow step (IF-AB3 + RSW calcN)", lambda: step(sol, clock, ss), 1, 1),
         ("fields_from_psih", lambda: fields_from_psih(psih_fn(sol), grid, interp), 1, 1),
-        ("build_patch_table", lambda: build_patch_table(fields, interp), 1, 2),
-        ("make_pair_table (cat + bf16)",
-         lambda: make_pair_table(T_old, T_new, rp.table_dtype), 1, 1),
+        ("pair table kernel (build_pair)", lambda: build_pair(fields, fields, rp), 1, 1),
         ("stack st (5, N)", lambda: torch.stack([p.x, p.y, p.k, p.l, p.sign]), 1, 1),
         ("RK4 table kernel (reads T_pair)",
          lambda: table_substep(T_pair, st, scal, rp=rp, interp=interp, da=1.0, **geo), 1, 0),
@@ -107,11 +105,13 @@ def stages(interp: str, device) -> None:
                                                     rp, **HERO_ADAPTIVE))
     print(f"  {'raytrace_adaptive, one interval':45s} {interval_ms:8.3f} ms")
 
-    # the first-cut path the table kernels replaced, for comparison
+    # the paths the kernels replaced, for comparison
     rows, _, _ = _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)
     rows_T, st7 = first_cut_inputs(T_pair, st, rp, **geo)
-    print("  replaced by the table kernels:")
+    print("  replaced by the pair-table and the table kernels:")
     for name, fn in (
+            ("roll path (2 patch tables, cat, cast)",
+             lambda: pair_table_torch(fields, fields, interp, rp.table_dtype)),
             ("row gather (floor, index_select, .float())",
              lambda: _gather_patch_rows(T_pair, p, rp, grid.ny, grid.nx)),
             ("transpose rows -> rows_T", lambda: rows.t().contiguous()),

@@ -12,9 +12,9 @@ bit-equal to eager frames over at least three replays at 64^2 and 4,096
 packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5, the
 two-layer RK4 frame on the taps path and the flow frame of each
 command-line setup; a restore into a graphed driver; a caller's initial
-state left untouched; the table kernel run once a step and the taps
-gather once a stage by the replays, as a profiler trace finds them, with
-no host launch counted. These import no JAX:
+state left untouched; the table kernel and the pair table's run once a
+step (no roll) and the taps gather once a stage by the replays, as a
+profiler trace finds them, with no host launch counted. These import no JAX:
 
     python -m pytest --noconftest -q tests/test_torch_graph_frames.py
 """
@@ -32,7 +32,7 @@ from torch.utils._pytree import tree_leaves  # noqa: E402
 from juliaraytracingsw_tpu_torch.coupled import driver as drv_mod  # noqa: E402
 from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
 from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten  # noqa: E402
-from juliaraytracingsw_tpu_torch.ops import ray_step  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops import pair_table, ray_step  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import interp  # noqa: E402
 from juliaraytracingsw_tpu_torch.utils import observability as obs  # noqa: E402
 
@@ -272,14 +272,19 @@ def test_rk4_graph_frames_match_eager(cuda_device):
     drv.spinup(4, chunk=4)
     _graphed_vs_eager(drv, "coupled", FRAMES)
     launches = ray_step.table_launches["bilinear"]
+    builds = pair_table.pair_table_launches["bilinear"]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         drv.run(3, K)
         torch.cuda.synchronize()
-    # the replays run the table kernel once a step, with no host launch
-    assert sum(1 for e in prof.events() if e.device_type.name == "CUDA"
-               and "ray_step_table_kernel" in e.name) == 3 * K
+    # the replays run the table kernel and the pair table's once a step,
+    # with no host launch, and no roll
+    runs = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert sum(1 for name in runs if "ray_step_table_kernel" in name) == 3 * K
+    assert sum(1 for name in runs if "pair_table_kernel" in name) == 3 * K
+    assert not [name for name in runs if "roll_cuda_kernel" in name]
     assert ray_step.table_launches["bilinear"] == launches
+    assert pair_table.pair_table_launches["bilinear"] == builds
     assert obs.graph_frames == {**{key: 0 for key in obs.graph_frames}, "captured": 1,
                                 "replayed": FRAMES + 2, "eager.bootstrap": 1,
                                 "eager.first_call": 1}

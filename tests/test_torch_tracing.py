@@ -113,7 +113,7 @@ def test_rk4_frame_spans_nest():
     top = "frame.coupled"
     assert spans == {
         (top, None): 1,
-        ("rays.table", top): 11,            # the old table, then a table and a pair a step
+        ("rays.table", top): 5,             # one pair table a step
         ("flow.step", top): 5, ("rays.fields", top): 5, ("rays.step", top): 5,
         ("rays.reset", top): 5,
         ("driver.nan_guard", None): 1, ("wait.driver.nan_guard", "driver.nan_guard"): 1,
