@@ -26,7 +26,7 @@
 // 16, the last one longer; ops/probes.copy_slices), and block s starts
 // slice s of every copy, in the schedule's order, on its own mbarriers and
 // into its own slices of the ring slots. A thread's chain of starting bulk
-// copies costs ~0.20 us a copy on this card (scripts/torch_probe_sweeps.py),
+// copies costs ~0.20 us a copy on this card (PERF.md §6),
 // so where slot reuse allows it each mbarrier has its own starting thread
 // (thread k starts copies k, k + in_flight, ...; else one thread starts
 // all, as the TPU's scalar core). Every copy is still started, waited and

@@ -16,8 +16,8 @@
 // first: each random 4-byte read is a request for a whole 32-byte sector,
 // 33.5 MB for 1M elements, and 1M such reads from the 1 MB table take
 // 0.0093-0.0099 ms on an H100 with no index or output stream at all (a
-// launch of the same grid alone 0.0039-0.0043; scripts/torch_probe_sweeps.py
-// `l2`), whatever the reads a thread. Design: four neighbouring elements a
+// launch of the same grid alone 0.0039-0.0043; PERF.md §6), whatever the
+// reads a thread. Design: four neighbouring elements a
 // thread, their indices in one 16-byte load, four independent table reads
 // in flight, one 16-byte streaming store; element by element where idx is
 // not 16-byte aligned and for the ragged tail. A table spread over the

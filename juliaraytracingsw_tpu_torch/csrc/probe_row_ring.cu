@@ -52,8 +52,7 @@
 // async proxy and read by generic loads after the mbarrier wait, the
 // ordinary TMA-load pattern, which needs none either.)
 //
-// Measured on an H100 80GB HBM3 at 700 W (scripts/torch_probe_sweeps.py,
-// which builds its variants of this ring itself): one ring starts a copy
+// Measured on an H100 80GB HBM3 at 700 W (PERF.md §6): one ring starts a copy
 // every ~0.20 us whatever K >= 4 (the copies alone; ~0.24 us with the bulk
 // store), so an SM's rings add up until device memory binds; 16 rings an
 // SM, one per warp, run 131,072 rows of 160 f32 in ~0.065 ms.

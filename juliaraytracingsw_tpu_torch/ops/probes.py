@@ -148,7 +148,7 @@ COPY_PROBES = {
 
 
 # bytes: the least slice of a copy one block starts (slices of 256 B to 4 KB
-# time alike, scripts/torch_probe_sweeps.py; PERF.md)
+# time alike on an H100; PERF.md §6)
 COPY_SLICE_MIN = 2048
 
 
@@ -351,9 +351,8 @@ def row_ring_torch(table: torch.Tensor, *, n_blocks: int, rows_per_blk: int, K: 
     return table[rows.reshape(n_blocks, rows_per_blk)]
 
 
-# rings an SM (one a warp), chosen by the issuers curve of
-# scripts/torch_probe_sweeps.py (PERF.md): 8 rings an SM reach device
-# memory, 16 a little more
+# rings an SM (one a warp), chosen by the issuers curve measured on an H100
+# (PERF.md §6): 8 rings an SM reach device memory, 16 a little more
 RING_ISSUERS_PER_SM = 16
 
 

@@ -17,8 +17,8 @@ line-for-line copy of the reference's jnp twin:
   ``attempt_torch`` (``_attempt_math``/``attempt_jnp``).
 
 A wrapper runs the twin for tensors on the CPU and the kernel for tensors
-on the card; the tests and ``chip_smoke.py`` hold each kernel against its
-twin, and each table form against its first cut.
+on the card; the tests marked ``cuda`` (``tests/test_torch_cuda.py``) hold
+each kernel against its twin, and each table form against its first cut.
 
 The first cut's contracts (the reference's): ``rows_T (2W, N)`` f32
 gathered (old|new) patch rows, ``st (7, N)`` f32 = [x y k l sign bx by];

@@ -1,18 +1,39 @@
-"""The fused RK4 substep and DP5(4) attempt kernels on an NVIDIA GPU, in
-their first cut and their table form, against their plain twins, and the
-probe kernels against their plain versions.
+"""The port on an NVIDIA GPU: the hand-written kernels against their
+plain twins, and every path that runs them against the same path on the
+CPU, with the kernels' runs counted.
+
+- the fused RK4 substep and DP5(4) attempt kernels, in their first cut and
+  their table form, at ragged sizes and at the hero's (1,048,576 packets
+  over a 512^2 table), the attempt's error row where the truncation error
+  dominates, the substep's backward; the kernel library's entry points;
+- the probe kernels against their plain versions;
+- the birth/death kernel against its twin;
+- the coupled paths through the command line's set-up, GPU against CPU:
+  RK4, adaptive and midpoint frames, a frame's gradient and remat, the
+  two-layer, 3-layer, RSW-variant and single-wave frames, every stepper,
+  birth/death frames and their checkpoint, steady raytracing, NUFFT rays,
+  1-D rays and forced RSW; the table kernels the driver runs, and no
+  other; a checkpoint of the card restored on the CPU;
+- ``parallel/`` on a mesh of one process over NCCL.
 
 These tests need a CUDA device and ``nvcc``, and skip without one. They
 import neither JAX nor its package, so they also run where JAX is absent,
 without the suite's ``conftest.py``:
 
-    python -m pytest --noconftest -q tests/test_torch_cuda.py
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py \
+        tests/test_torch_graph_frames.py tests/test_torch_pair_table.py
 """
+import importlib.util
+import math
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+from torch_card import (DT, HERO_IC, cli_driver, cli_outputs, coupled_argv,  # noqa: E402
+                        cuda_device, drive_cli, hero_fields, kernel_runs,  # noqa: F401
+                        packet_gap, quiet, random_state, rel_gap, setup_case)
 
 from juliaraytracingsw_tpu_torch.ops import ray_step  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays.packets import Packets  # noqa: E402
@@ -25,11 +46,26 @@ L = 2 * np.pi
 NX = 64
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
-    return torch.device("cuda")
+@pytest.mark.cuda
+def test_kernel_library_builds_and_exports_every_entry_point(cuda_device):
+    """``ops/_build`` compiles every ``csrc/*.cu`` into one library, which
+    exports exactly the C entry points the wrappers bind with ``ctypes``,
+    and each resolves."""
+    import re
+    from pathlib import Path
+
+    from juliaraytracingsw_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    assert _build.build_info.path.exists()
+    ops = Path(_build.__file__).parent
+    bound = {name for f in ops.glob("*.py") for name in re.findall(r"\bjrsw_\w+", f.read_text())}
+    exported = {name for f in _build.CSRC.glob("*.cu")
+                for name in re.findall(r'extern "C" \w+ (jrsw_\w+)\(', f.read_text())}
+    assert bound == exported and {"jrsw_ray_step_table", "jrsw_ray_attempt_table",
+                                  "jrsw_pair_table", "jrsw_birth_death"} <= bound
+    for name in sorted(bound):
+        assert callable(getattr(lib, name)), name
 
 
 def _inputs(interp, device, n, seed=0, nx=NX):
@@ -313,6 +349,87 @@ def test_table_kernels_refuse_what_they_cannot_do(kind, cuda_device):
     assert out.device.type == "cpu" and counts == before
 
 
+# --- at the hero's size ----------------------------------------------------------
+
+def _hero_inputs(n, nx, interp, table_dtype, device):
+    """The pair table of two hero flows at nx^2 (``torch_card.hero_fields``)
+    and n packets at random positions on the hero's wavenumber ring."""
+    from juliaraytracingsw_tpu_torch.rays.raytrace import build_pair
+
+    grid, rp, fo, fn = hero_fields(nx, interp, device)
+    rp = rp._replace(table_dtype=table_dtype)
+    st = random_state(n, grid, float(np.sqrt(3.0) * rp.f / rp.Cg), device)
+    return build_pair(fo, fn, rp), st, rp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["substep", "attempt"])
+def test_table_kernels_at_the_hero_size(kind, cuda_device):
+    """1,048,576 packets at random positions over the bf16 bilinear pair
+    table of two 512^2 hero flows, one step of the hero's dt (the attempt
+    at the adaptive hero's tolerances): one launch, the kernel against its
+    twin, and bit-equal to the first cut on the rows the ray path gathers."""
+    n, nx = 1 << 20, 512
+    T_pair, st, rp = _hero_inputs(n, nx, "bilinear", "bfloat16", cuda_device)
+    geo = dict(rp=rp, interp="bilinear")
+    if kind == "substep":
+        geo["da"] = 1.0
+        scal = torch.tensor([0.0, DT], device=cuda_device)
+        kernel, twin, first_cut = (ray_step.table_substep, ray_step.table_substep_torch,
+                                   ray_step.fused_substep)
+        counts = ray_step.table_launches
+    else:
+        scal = torch.tensor([0.0, 1.0, DT, 1e-3, 1e-6], device=cuda_device)
+        kernel, twin, first_cut = (ray_step.table_attempt, ray_step.table_attempt_torch,
+                                   ray_step.fused_attempt)
+        counts = ray_step.table_attempt_launches
+    before = counts["bilinear"]
+    out = kernel(T_pair, st, scal, ny=nx, nx=nx, **geo)
+    torch.cuda.synchronize()
+    assert counts["bilinear"] == before + 1
+    torch.testing.assert_close(out, twin(T_pair, st, scal, ny=nx, nx=nx, **geo),
+                               rtol=1e-5, atol=1e-6)
+    rows_T, st7 = ray_step.first_cut_inputs(T_pair, st, rp, nx, nx)
+    assert torch.equal(out, first_cut(rows_T, st7, scal, **geo))
+    assert float((out[:2] - st[:2]).abs().max()) > 1e-4      # packets moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["first cut", "float32", "bfloat16"])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_attempt_error_row_where_truncation_dominates(interp, form, cuda_device):
+    """The attempt's error row esum = |h (b - b4) . k / scale|^2 cancels
+    O(1-10) stage slopes down to the truncation error, which at the hero's
+    dt lies below float32's resolution. So it is held at h = 20 dt, rtol =
+    atol = 1e-6 (batch norm ~0.2, the scale the controller decides on), on
+    1,048,576 packets over two 512^2 hero flows, for the first cut (float32
+    rows) and the table form on either table: rows 0-3 as the kernel tests
+    hold them, esum to 1% of its largest value, the batch norm sqrt(sum(esum)
+    / 4N) to 1e-3 relative (the float32 twin against float64 on the CPU at N
+    = 16,384: 1.9e-3 of the largest esum, 5.1e-5 in the norm). The packets
+    move about two cells, into the patch's clamped extension, which kernel
+    and twin compute alike."""
+    n, nx = 1 << 20, 512
+    T_pair, st, rp = _hero_inputs(n, nx, interp, "float32" if form == "first cut" else form,
+                                  cuda_device)
+    scal = torch.tensor([0.0, 1.0, 20 * DT, 1e-6, 1e-6], device=cuda_device)
+    if form == "first cut":
+        rows_T, st7 = ray_step.first_cut_inputs(T_pair, st, rp, nx, nx)
+        out = ray_step.fused_attempt(rows_T, st7, scal, rp=rp, interp=interp)
+        twin = ray_step.attempt_torch(rows_T, st7, scal, cfg=ray_step.substep_cfg(rp, interp),
+                                      interp=interp, x0=rp.x0, y0=rp.y0)
+    else:
+        geo = dict(rp=rp, interp=interp, ny=nx, nx=nx)
+        out = ray_step.table_attempt(T_pair, st, scal, **geo)
+        twin = ray_step.table_attempt_torch(T_pair, st, scal, **geo)
+    torch.testing.assert_close(out[:4], twin[:4], rtol=1e-5, atol=1e-6)
+    esum_max = float(twin[4].max())
+    assert esum_max > 0
+    assert float((out[4] - twin[4]).abs().max()) <= 1e-2 * esum_max
+    norm_k, norm_t = (float(torch.sqrt(o[4].double().sum() / (4 * n))) for o in (out, twin))
+    assert abs(norm_k - norm_t) <= 1e-3 * norm_t
+
+
 # --- the copy and gather probe kernels (ops/probes.py) ------------------------
 
 def _probes():
@@ -522,12 +639,8 @@ def test_cli_gpu_matches_cpu(tmp_path, cuda_device):
     spinup steps and 5 frames of 20, on the card against the CPU:
     diagnostics within rtol 1e-5, the last packets within 1e-4. Read from
     the command line's files, or where h5py is not installed (the command
-    line cannot write) from the driver its own setup builds, as
-    ``chip_smoke.py`` phase 6d does."""
-    import importlib.util
-
-    from chip_smoke import cli_outputs, kernel_runs
-
+    line cannot write) from the driver its own setup builds. The card's
+    frames run the table kernel once a step and no first cut."""
     have_h5py = importlib.util.find_spec("h5py") is not None
 
     def argv(platform):
@@ -539,7 +652,7 @@ def test_cli_gpu_matches_cpu(tmp_path, cuda_device):
     # the table kernel's runs on the card, the frames' graph replays included
     with kernel_runs() as runs:
         gd, gp = cli_outputs(argv("cuda"), have_h5py)
-    assert runs["table"] == 100
+    assert runs["table"] == 100 and runs["first cut"] == 0
     cd, cp = cli_outputs(argv("cpu"), have_h5py)
     assert sorted(gd) == sorted(cd) == ["kinetic_energy", "potential_energy", "t"]
     for key in cd:
@@ -556,12 +669,10 @@ def test_twolayer_frame_gpu_matches_cpu(extra, cuda_device):
     """One coupled two-layer (or 3-layer) frame at 64^2 x 4,096 packets
     through the command line's set-up, on the card (the table kernel, 5
     launches) against the CPU: ``sol`` within 1e-5 of its largest mode,
-    packets within 1e-4, as ``chip_smoke.py`` phase 3 holds a frame."""
-    from chip_smoke import coupled_argv, drive_cli
-
+    packets within 1e-4."""
     before = ray_step.table_launches["bilinear"]
-    sims = [drive_cli(coupled_argv("twolayer", 64, 64, 1, *extra, platform=p),
-                      lambda line: None)[0].sim for p in ("cuda", "cpu")]
+    sims = [drive_cli(coupled_argv("twolayer", 64, 64, 1, *extra, platform=p)).sim
+            for p in ("cuda", "cpu")]
     assert ray_step.table_launches["bilinear"] - before == 5
     gpu, cpu = sims
     assert float((gpu.sol.cpu() - cpu.sol).abs().max() / cpu.sol.abs().max()) < 1e-5
@@ -599,6 +710,353 @@ def test_new_steppers_gpu_match_cpu(stepper, cuda_device):
         assert sol.device.type == torch.device(device).type and clock.step == 10
         out.append(sol.cpu())
     assert float((out[0] - out[1]).abs().max() / out[1].abs().max()) < 1e-5
+
+
+# the adaptive hero's ray options: the reference's production tolerances,
+# one attempt an interval to start
+ADAPTIVE = ("--ray-method", "adaptive", "--ray-rtol", "1e-3", "--ray-atol", "1e-6",
+            "--ray-max-steps", "16")
+
+
+def _driver(argv):
+    """(driver, case) of a command line; an adaptive one at the adaptive
+    hero's loop ('while', one attempt an interval to start)."""
+    drv, _, case = cli_driver(argv)
+    if drv.ray_method == "adaptive":
+        drv.ray_opts.update(init_substeps=1, loop="while")
+    return drv, case
+
+
+def _cutoffs(args, case):
+    """The command line's k-cutoff and reset wavenumber of a case."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+
+    return dict(k_cutoff=100.0 * case.f / case.Cg, k0=cli._k0(args, case.f, case.Cg))
+
+
+def _first_cut_launches():
+    return sum(ray_step.launches.values()) + sum(ray_step.attempt_launches.values())
+
+
+@pytest.mark.cuda
+def test_adaptive_frame_gpu_matches_cpu(cuda_device):
+    """One adaptive DP5(4) frame of 5 steps at the adaptive hero's options,
+    128^2 x 16,384 packets, float32 tables, through the command line's
+    driver, on the card against the CPU: the same accepted and rejected
+    attempts each step, one table-attempt launch an attempt and no other
+    ray kernel, ``sol`` within 1e-5 of its largest mode, packets within
+    1e-4."""
+    ends, decisions = [], []
+    for platform in (cuda_device, "cpu"):
+        drv, case = _driver(coupled_argv("rsw", 128, 128, 1, *HERO_IC, *ADAPTIVE,
+                                         "--table-dtype", "float32", platform=platform))
+        before = (dict(ray_step.table_attempt_launches), dict(ray_step.table_launches),
+                  _first_cut_launches())
+        drv.run(1, 5)
+        ends.append(drv.sim)
+        decisions.append([(int(i["n_accepted"]), int(i["n_rejected"])) for i in drv.ray_infos])
+        if platform == cuda_device:
+            attempts = sum(a + r for a, r in decisions[0])
+            assert attempts >= 5
+            assert ray_step.table_attempt_launches == {
+                **before[0], "bilinear": before[0]["bilinear"] + attempts}
+            assert ray_step.table_launches == before[1]
+            assert _first_cut_launches() == before[2]
+    assert decisions[0] == decisions[1]
+    gpu, cpu = ends
+    assert rel_gap(gpu.sol, cpu.sol) < 1e-5
+    assert packet_gap(gpu.packets, cpu.packets) < 1e-4
+    assert float((cpu.packets.x - case.packets.x).abs().max()) > 1e-4      # packets moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["rk4", "adaptive"])
+@pytest.mark.parametrize("interp", INTERPS)
+def test_driver_runs_only_the_table_kernels(interp, method, cuda_device):
+    """The driver's two main paths, 3 frames of 5 steps at 64^2 x 4,096
+    packets over bf16 tables, run the table kernels and nothing else of
+    ours, as a profiler trace counts them (a graphed RK4 frame's replays
+    included): a step builds one pair table and runs one table substep
+    (RK4) or one table attempt an attempt (adaptive); no first cut, no
+    other interp's kernel launched. The state stays finite, |k| under the
+    k-cutoff, the energy within 1%."""
+    from juliaraytracingsw_tpu_torch.models import rsw
+
+    extra = ADAPTIVE if method == "adaptive" else ()
+    drv, case = _driver(coupled_argv("rsw", 64, 64, 1, *HERO_IC, *extra, "--interp", interp))
+    grid, params = case.model.grid, case.model.params
+    e0 = float(rsw.total_energy(case.sol0, grid, params))
+    others = {k: v for k, v in ray_step.table_launches.items() if k != interp}
+    others_attempt = {k: v for k, v in ray_step.table_attempt_launches.items() if k != interp}
+    with kernel_runs() as runs:
+        drv.run(3, 5)
+    attempts = sum(int(i["n_accepted"]) + int(i["n_rejected"]) for i in drv.ray_infos)
+    if method == "rk4":
+        assert runs["table"] == 15 and runs["table attempt"] == 0
+    else:
+        assert runs["table attempt"] == attempts >= 15 and runs["table"] == 0
+    assert runs["pair table"] == 15 and runs["first cut"] == 0 and runs["roll"] == 0
+    assert {k: v for k, v in ray_step.table_launches.items() if k != interp} == others
+    assert ({k: v for k, v in ray_step.table_attempt_launches.items() if k != interp}
+            == others_attempt)
+    sim = drv.sim
+    assert bool(torch.isfinite(sim.sol.abs()).all())
+    assert float(torch.sqrt(sim.packets.k ** 2 + sim.packets.l ** 2).max()) < drv.k_cutoff
+    assert abs(float(rsw.total_energy(sim.sol, grid, params)) - e0) < 0.01 * e0
+
+
+def _frame(argv, flow_steps, **kw):
+    """(case, ``make_coupled_frame`` over the command line's case with
+    IF-AB3 at its dt, its k-cutoff and reset wavenumber, the state at a
+    ``sol``)."""
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    args, case = setup_case(argv)
+    init, step = build_stepper(case.model, "IFMAB3", args.dt)
+    frame = make_coupled_frame(case.model, step, case.psih_fn, case.rp, flow_steps,
+                               **_cutoffs(args, case), **kw)
+
+    def state(sol):
+        fields = fields_from_psih(case.psih_fn(sol), case.model.grid, case.rp.interp)
+        return SimState(sol, zero_clock(device=sol.device), init(sol), case.packets, fields)
+
+    return case, frame, state
+
+
+def _loss_grad(case, frame, state):
+    """d mean(k^2 + l^2) / d sol after ``frame`` from the case's state."""
+    sol = case.sol0.clone().requires_grad_()
+    end = frame(state(sol))
+    return torch.autograd.grad(torch.mean(end.packets.k ** 2 + end.packets.l ** 2), sol)[0]
+
+
+@pytest.mark.cuda
+def test_frame_gradient_gpu_matches_cpu(cuda_device):
+    """The gradient of mean(k^2 + l^2) with respect to ``sol`` through one
+    RK4 frame of 5 steps, 128^2 x 16,384 packets, float32 tables, on the
+    card (5 table-kernel launches, no first cut) against the CPU: relative
+    L2 within 1e-4 (cuFFT against the CPU's FFT, FMA contraction in the
+    kernel, atomics in the scatters). Then one implicit-midpoint frame,
+    forward, which runs no table kernel: ``sol`` within 1e-5, packets within
+    1e-4."""
+    def argv(platform):
+        return coupled_argv("rsw", 128, 128, 1, *HERO_IC, "--table-dtype", "float32",
+                            platform=platform)
+
+    before = (ray_step.table_launches["bilinear"], _first_cut_launches())
+    gpu = _loss_grad(*_frame(argv(cuda_device), 5))
+    torch.cuda.synchronize()
+    assert ray_step.table_launches["bilinear"] == before[0] + 5
+    assert _first_cut_launches() == before[1]
+    cpu = _loss_grad(*_frame(argv("cpu"), 5))
+    assert float(torch.linalg.vector_norm(gpu.cpu() - cpu)
+                 / torch.linalg.vector_norm(cpu)) <= 1e-4
+
+    before = dict(ray_step.table_launches)
+    ends = []
+    for platform in (cuda_device, "cpu"):
+        case, frame, state = _frame(argv(platform), 5, ray_method="midpoint")
+        ends.append(frame(state(case.sol0)))
+    assert ray_step.table_launches == before
+    assert rel_gap(ends[0].sol, ends[1].sol) < 1e-5
+    assert packet_gap(ends[0].packets, ends[1].packets) < 1e-4
+    assert float((ends[1].packets.x - case.packets.x).abs().max()) > 1e-4
+
+
+@pytest.mark.cuda
+def test_fwd_bwd_step_runs_the_table_kernel_once(cuda_device):
+    """The hero's differentiable step (one flow step, then one RK4 ray
+    substep over bf16 tables; the value and gradient of mean(k^2 + l^2)
+    with respect to ``sol``) at 128^2 x 16,384 packets: one table-kernel
+    launch, none of the first cut or the attempt; the gradient finite and
+    nonzero."""
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih, raytrace
+
+    args, case = setup_case(coupled_argv("rsw", 128, 128, 1, *HERO_IC))
+    grid, rp = case.model.grid, case.rp
+    init, step = build_stepper(case.model, "IFMAB3", args.dt)
+    before = (dict(ray_step.table_launches), dict(ray_step.table_attempt_launches),
+              _first_cut_launches())
+    sol = case.sol0.clone().requires_grad_()
+    fields_old = fields_from_psih(case.psih_fn(sol), grid, rp.interp)
+    sol1, _, _ = step(sol, zero_clock(device=cuda_device), init(sol))
+    fields_new = fields_from_psih(case.psih_fn(sol1), grid, rp.interp)
+    out = raytrace(case.packets, fields_old, fields_new, 0.0, args.dt, rp, nsubsteps=1)
+    (grad,) = torch.autograd.grad(torch.mean(out.k ** 2 + out.l ** 2), sol)
+    torch.cuda.synchronize()
+    assert ray_step.table_launches == {**before[0], "bilinear": before[0]["bilinear"] + 1}
+    assert ray_step.table_attempt_launches == before[1]
+    assert _first_cut_launches() == before[2]
+    assert bool(torch.isfinite(grad.abs()).all()) and float(grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_remat_gradient_equals_plain(cuda_device):
+    """The gradient through 10 coupled 512^2 steps (taps gather, 16,384
+    packets) with ``remat`` (each step recomputed in the backward) and
+    without: max |difference| within 1e-6 of the largest gradient (the
+    recomputed steps are the same calls; only the atomics' order differs)."""
+    argv = coupled_argv("rsw", 512, 128, 1, *HERO_IC, "--table-dtype", "float32",
+                        platform=cuda_device, gather="taps")
+    grads = [_loss_grad(*_frame(argv, 10, remat=remat)) for remat in (False, True)]
+    assert bool(torch.isfinite(grads[1].abs()).all())
+    assert float((grads[1] - grads[0]).abs().max() / grads[0].abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_card_checkpoint_restores_on_the_cpu(tmp_path, cuda_device):
+    """The command line's checkpoint of a graphed run on the card (128^2 x
+    16,384 packets, bf16 tables, 3 frames) restored into the command line's
+    driver on the CPU: every leaf equal, on the CPU."""
+    from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten
+
+    path = str(tmp_path / "card.npz")
+    gpu = drive_cli(coupled_argv("rsw", 128, 128, 3, *HERO_IC, "--checkpoint", path))
+    cpu = cli_driver(coupled_argv("rsw", 128, 128, 3, *HERO_IC, platform="cpu"))[0]
+    cpu.restore(path)
+    for (p, x), (_, y) in zip(_flatten(cpu.sim), _flatten(gpu.sim), strict=True):
+        if isinstance(x, torch.Tensor):
+            assert x.device.type == "cpu" and torch.equal(x, y.cpu()), p
+        else:
+            assert x == y, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd,extra", [
+    ("rsw", ("--model", "linborg", *HERO_IC)), ("rsw", ("--model", "modified", *HERO_IC)),
+    ("rsw", ("--model", "quadheight", *HERO_IC)), ("single-wave", ())],
+    ids=["linborg", "modified", "quadheight", "single-wave"])
+def test_other_coupled_frames_gpu_match_cpu(cmd, extra, cuda_device):
+    """One coupled frame of each RSW variant at 64^2 x 4,096 packets (5
+    table-kernel launches), and of ``single-wave`` at 64^2 (2 packets, 5
+    spin-up steps, the taps path), through the command line's set-up on the
+    card against the CPU: ``sol`` within 1e-5 of its largest mode, packets
+    within 1e-4."""
+    sqrtp, spinup, launches = (1, 5, 0) if cmd == "single-wave" else (64, 0, 5)
+    before = ray_step.table_launches["bilinear"]
+    gpu, cpu = (drive_cli(coupled_argv(cmd, 64, sqrtp, 1, *extra, platform=platform,
+                                       spinup_steps=spinup)).sim
+                for platform in (cuda_device, "cpu"))
+    assert ray_step.table_launches["bilinear"] - before == launches
+    assert rel_gap(gpu.sol, cpu.sol) < 1e-5
+    assert packet_gap(gpu.packets, cpu.packets) < 1e-4
+
+
+@pytest.mark.cuda
+def test_thomasyamada_phases_gpu_match_cpu(cuda_device):
+    """The ``thomasyamada`` command line's startup and main phases
+    (``ty_driver._phase``, ETDRK4, no writer) at 64^2, 20 steps each in
+    chunks of 10, on the card against the CPU: ``sol`` within 1e-5 of its
+    largest mode, every diagnostic finite."""
+    import time
+
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled import ty_driver
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import ty_initial_condition
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.models import thomasyamada
+
+    ends = []
+    for platform in (cuda_device, "cpu"):
+        args = cli.build_parser().parse_args(["thomasyamada", "--nx", "64", "--platform",
+                                              platform])
+        cfg = cli.setup_thomasyamada(args, quiet)
+        grid = make_grid(64, Lx=cfg.Lx, device=platform)
+        model = thomasyamada.make_model(grid, nu=cfg.nu, nnu=cfg.nnu, Ro=cfg.Ro)
+        sol = ty_initial_condition(grid, np.random.default_rng(cfg.seed), cfg.k0g_range,
+                                   cfg.k0w_range, cfg.at, cfg.ag, cfg.aw)
+        clock, diags = zero_clock(device=platform), {k: [] for k in ty_driver.DIAG_KEYS}
+        for label, dt in (("startup", cfg.startup_dt), ("main", cfg.dt)):
+            sol, clock = ty_driver._phase(model, cfg, sol, clock, dt, 20, 10, None, diags,
+                                          label, time.time())
+        assert all(len(v) == 4 and np.isfinite(v).all() for v in diags.values())
+        ends.append(sol)
+    assert rel_gap(*ends) < 1e-5
+
+
+@pytest.mark.cuda
+def test_steady_raytracing_launches(cuda_device):
+    """``steady-raytracing`` through the command line at 64^2 x 4,096
+    packets ('auto' -> patch, bf16 tables), 2 frames of 20 substeps handed
+    to a writer that keeps nothing: exactly 40 table-kernel launches, none
+    of the first cut or birth/death; the packets finite."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.ops import birth_death
+
+    nx = 64
+    output_dt = 20 * 0.1 / 2.0 * (2 * np.pi / nx)     # 20 CFL steps at the default tune
+    args = cli.build_parser().parse_args([
+        "steady-raytracing", "--nx", str(nx), "--sqrt-npackets", "64", "--interp", "bilinear",
+        "--table-dtype", "bfloat16", "--gather", "auto", "--output-dt", repr(output_dt),
+        "--T", repr(2.5 * output_dt), "--seed", "1", "--platform", cuda_device])
+    before = (dict(ray_step.table_launches), _first_cut_launches(),
+              birth_death.launches["birth_death"])
+    packets, _ = cli.steady_raytracing(args, cli._NullWriter(), log_fn=quiet)
+    torch.cuda.synchronize()
+    assert ray_step.table_launches == {**before[0], "bilinear": before[0]["bilinear"] + 40}
+    assert _first_cut_launches() == before[1]
+    assert birth_death.launches["birth_death"] == before[2]
+    assert all(bool(torch.isfinite(a).all()) for a in packets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["nufft_raytrace", "raytrace1d rk4", "raytrace1d midpoint",
+                                  "forced rsw"])
+def test_other_paths_gpu_match_cpu(path, cuda_device):
+    """``nufft_raytrace`` (64^2, 4,096 packets, 2 RK4 substeps): packets
+    within 1e-4; ``raytrace1d`` (4,096 rays, 200 steps of 1e-3 through the
+    integrator benchmark's field): within 1e-5 of each output's largest
+    value; 5 IF-AB3 steps of forced RSW at 64^2: ``sol`` within 1e-5 of its
+    largest mode. On the card against the CPU."""
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import (band_geo_wave_ic,
+                                                                        random_band_psih)
+    from juliaraytracingsw_tpu_torch.models import rsw
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper, run
+    from juliaraytracingsw_tpu_torch.rays import nufft_rays, ray1d
+    from juliaraytracingsw_tpu_torch.rays.packets import lattice_packets
+
+    f, cg = 3.0, 1.0
+    k0 = float(np.sqrt(3.0) * f / cg)
+    outs = []
+    for device in (cuda_device, "cpu"):
+        if path == "nufft_raytrace":
+            grid = make_grid(64, device=device)
+            rng = np.random.default_rng(3)
+            so, sn = (nufft_rays.spectra_from_psih(
+                random_band_psih(grid, rng, kband=(2, 6), amp=0.2), grid) for _ in range(2))
+            rp = RayParams(f=f, Cg=cg, x0=float(grid.x[0]), y0=float(grid.y[0]), dx=grid.dx,
+                           dy=grid.dy)
+            packets = lattice_packets(64, grid.Lx, grid.Ly, k0=k0, k_ring=True, device=device)
+            outs.append(nufft_rays.nufft_raytrace(packets, so, sn, 0.0, 0.02, grid, rp,
+                                                  nsubsteps=2))
+        elif path.startswith("raytrace1d"):
+            u, ux = (torch.as_tensor(a, dtype=torch.float32, device=device)
+                     for a in ray1d.benchmark_field(512))
+            outs.append(ray1d.raytrace1d(ray1d.init_rays1d(4096, device=device), u, ux, 1e-3,
+                                         200, 2 * np.pi, path.split()[1]))
+        else:
+            grid = make_grid(64, device=device)
+            Fh = torch.as_tensor(np.random.default_rng(6).normal(size=(3, 64, 33))
+                                 .astype(np.complex64) * 0.3, device=device)
+            model = rsw.make_model(grid, nu=1e-8, nnu=4, f=f, Cg=cg,
+                                   forcing=lambda sol, t, Fh=Fh: Fh * torch.cos(5.0 * t))
+            sol = band_geo_wave_ic(grid, np.random.default_rng(1), ag=0.5, aw=0.05, f=f, Cg=cg)
+            init, step = build_stepper(model, "IFMAB3", DT)
+            outs.append(run(step, sol, zero_clock(device=device), init(sol), 5)[0])
+    if path == "nufft_raytrace":
+        assert packet_gap(*outs) < 1e-4
+    elif path.startswith("raytrace1d"):
+        assert max(rel_gap(a, b) for a, b in zip(*outs)) < 1e-5
+    else:
+        assert rel_gap(*outs) < 1e-5
 
 
 def _bd_inputs(n, dtype, device, seed=0):
@@ -708,6 +1166,49 @@ def test_birth_death_refuses_mixed_dtypes(cuda_device):
         bd.birth_death(*p, st[0], st[1], st[2].to(torch.int64), st[3], 1.0, **consts)
 
 
+@pytest.mark.cuda
+def test_birth_death_frames_on_the_card(tmp_path, cuda_device):
+    """Weibull(1.5, 10) birth/death on 65,536 packets at 128^2 (float32
+    tables), 4 frames of 5 RK4 steps through the command line's driver,
+    graphed from the second: one table-kernel and one birth/death-kernel
+    run a step, as a profiler trace counts them; the births within 5 sigma
+    of N T E[1/L] (staggered ages: a packet of lifetime L dies within T
+    with chance T / L). Its checkpoint (the JAX package's layout, the key
+    uint32[2]) restored on the CPU, one more frame on each device: ages,
+    keys and births bit-equal, lifetimes within 1 ulp (float64 log and pow,
+    rounded once), ``sol`` within 1e-5 of its largest mode, packets within
+    1e-4."""
+    def argv(platform):
+        return coupled_argv("rsw", 128, 256, 1, *HERO_IC, "--table-dtype", "float32",
+                            "--birth-death", platform=platform)
+
+    gpu = cli_driver(argv(cuda_device))[0]
+    with kernel_runs() as runs:
+        gpu.run(4, 5)
+    assert runs["table"] == runs["birth_death"] == 20 and runs["first cut"] == 0
+    n, T, births = gpu.sim.packets.n, float(gpu.sim.clock.t), int(gpu.sim.bd.births)
+    expected = n * T * math.gamma(1.0 - 1.0 / gpu.bd_k_shape) / gpu.bd_lam
+    assert abs(births - expected) <= 5 * math.sqrt(expected), (births, expected)
+
+    path = str(tmp_path / "bd.npz")
+    gpu.checkpoint(path)
+    with np.load(path) as data:
+        paths = bytes(data["__treepaths__"]).decode().split("\n")
+        assert paths[-4:] == [".bd.age", ".bd.lifetime", ".bd.key", ".bd.births"]
+        assert data[f"leaf_{paths.index('.bd.key')}"].dtype == np.uint32
+    cpu = cli_driver(argv("cpu"))[0]
+    cpu.restore(path)
+    for drv in (gpu, cpu):
+        drv.run(1, 5)
+    g, c = gpu.sim, cpu.sim
+    for name in ("age", "key", "births"):
+        assert torch.equal(getattr(g.bd, name).cpu(), getattr(c.bd, name)), name
+    assert _ulps(g.bd.lifetime, c.bd.lifetime) <= 1.0
+    assert int(g.bd.births) > births
+    assert rel_gap(g.sol, c.sol) < 1e-5
+    assert packet_gap(g.packets, c.packets) < 1e-4
+
+
 @pytest.fixture
 def nccl_mesh(cuda_device):
     """A mesh of one process over NCCL, its process group destroyed after
@@ -780,3 +1281,165 @@ def test_sharded_frame_is_bit_equal_across_runs(nccl_mesh, cuda_device):
     (sa, _, _, pa), (sb, _, _, pb) = runs
     assert torch.equal(sa, sb) and all(torch.equal(a, b) for a, b in zip(pa, pb))
     assert float((pa.x - packets.x).abs().max()) > 1e-4
+
+
+# the JAX tests' limits for a sharded run against a replicated one
+def _sharded_close(got, want, packets=False):
+    got, want = got.cpu(), want.cpu()
+    if packets:
+        return torch.allclose(got, want, rtol=5e-4, atol=5e-5)
+    return torch.allclose(got, want, rtol=2e-4, atol=2e-5 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sharded_frame_matches_the_replicated_frame(nccl_mesh, cuda_device):
+    """``ShardedRSW`` on a mesh of one (NCCL) at 128^2, 16,384 packets over
+    bf16 tables, spun up 10 sharded steps, 2 frames of 5 steps: one
+    table-kernel and one pair-table launch a step, no first cut, the first
+    frame within the JAX tests' limits of the replicated
+    ``make_coupled_frame`` from the same state; ``overlap=True`` from the
+    end state gives the sequential frame's ``sol`` bit for bit and its
+    packets within rtol 1e-6, atol 1e-7."""
+    from juliaraytracingsw_tpu_torch.core.steppers import AB3State, zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState, make_coupled_frame
+    from juliaraytracingsw_tpu_torch.models.base import build_stepper
+    from juliaraytracingsw_tpu_torch.ops import pair_table
+    from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets, shard_packets
+    from juliaraytracingsw_tpu_torch.parallel.sharded_rsw import ShardedRSW
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    mesh = nccl_mesh
+    args, case = setup_case(coupled_argv("rsw", 128, 128, 1, *HERO_IC, "--gather", "patch"))
+    grid, model, rp = case.model.grid, case.model, case.rp
+    cut = _cutoffs(args, case)
+    sh = ShardedRSW(grid, model.params, mesh, dt=args.dt)
+    init_fn, step_fn = sh.stepper()
+    sol, clock = sh.shard_solution(case.sol0), zero_clock(device=cuda_device)
+    state = init_fn(sol)
+    for _ in range(10):
+        sol, clock, state = step_fn(sol, clock, state)
+    start = (sol, clock, state, shard_packets(case.packets, mesh))
+    frame = sh.make_coupled_frame(rp, 5, **cut)
+    before = (dict(ray_step.table_launches), dict(pair_table.pair_table_launches),
+              _first_cut_launches())
+    first = frame(*start)
+    end = frame(*first)
+    torch.cuda.synchronize()
+    assert ray_step.table_launches == {**before[0], "bilinear": before[0]["bilinear"] + 10}
+    assert pair_table.pair_table_launches == {**before[1],
+                                              "bilinear": before[1]["bilinear"] + 10}
+    assert _first_cut_launches() == before[2]
+
+    sol_s, clock_s, state_s, pk_s = start
+    full = sh.unshard(sol_s)
+    init_r, step_r = build_stepper(model, "IFMAB3", args.dt)
+    ref = make_coupled_frame(model, step_r, case.psih_fn, rp, 5, **cut)(
+        SimState(full, clock_s, AB3State(sh.unshard(state_s.N1), sh.unshard(state_s.N2)),
+                 gather_packets(pk_s, mesh), fields_from_psih(case.psih_fn(full), grid,
+                                                              rp.interp)))
+    assert _sharded_close(sh.unshard(first[0]), ref.sol)
+    got = gather_packets(first[3], mesh)
+    assert all(_sharded_close(getattr(got, c), getattr(ref.packets, c), packets=True)
+               for c in "xykl")
+
+    overlap = sh.make_coupled_frame(rp, 5, overlap=True, **cut)
+    (sa, _, _, pa), (sb, cb, _, pb) = (f(*end) for f in (frame, overlap))
+    assert torch.equal(sa, sb) and cb.step == end[1].step + 5
+    assert all(torch.allclose(b, a, rtol=1e-6, atol=1e-7) for a, b in zip(pa, pb))
+
+
+def _sharded_run(argv, mesh):
+    """A coupled subcommand's ``--sharded`` run on ``mesh`` without
+    writers, as the command line runs it -> (arguments, case, ``ShardedRun``)."""
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+
+    args, case = setup_case(argv)
+    cli._check_sharded_options(args)
+    return args, case, cli.run_sharded(args, case, cli.make_sharded(args, case, mesh),
+                                       log_fn=quiet)
+
+
+@pytest.mark.cuda
+def test_sharded_rsw_command_line_restores_on_the_cpu(tmp_path, nccl_mesh, cuda_device):
+    """``rsw --sharded`` on a mesh of one at 128^2 x 16,384 packets, float32
+    tables, 2 frames ('auto' -> patch: 10 table-kernel launches) and its
+    ``--checkpoint`` (the unsharded tree) restored on the CPU by the
+    replicated port: the next frame of each within 1e-5 (``sol``, of its
+    largest mode) and 1e-4 (packets)."""
+    from juliaraytracingsw_tpu_torch.core.steppers import AB3State, zero_clock
+    from juliaraytracingsw_tpu_torch.coupled.driver import SimState
+    from juliaraytracingsw_tpu_torch.io.checkpoint import load_checkpoint
+    from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets
+    from juliaraytracingsw_tpu_torch.rays.raytrace import fields_from_psih
+
+    ckpt = str(tmp_path / "sharded.npz")
+
+    def argv(platform):
+        return coupled_argv("rsw", 128, 128, 2, *HERO_IC, "--table-dtype", "float32",
+                            "--sharded", "--checkpoint", ckpt, platform=platform)
+
+    before = ray_step.table_launches["bilinear"]
+    args, case, res = _sharded_run(argv(cuda_device), nccl_mesh)
+    torch.cuda.synchronize()
+    assert case.rp.gather == "patch" and ray_step.table_launches["bilinear"] - before == 10
+    frame = res.sh.make_coupled_frame(case.rp, 5, **_cutoffs(args, case))
+    sol_g, _, _, pk_g = frame(res.sol, res.clock, res.state, res.packets)
+
+    drv, _, cpu_case = cli_driver(argv("cpu"))
+    like = {"sol": cpu_case.sol0, "clock": zero_clock(device="cpu"), "N1": cpu_case.sol0,
+            "N2": cpu_case.sol0, "packets": cpu_case.packets}
+    tree = load_checkpoint(ckpt, like)
+    drv.sim = SimState(tree["sol"], tree["clock"], AB3State(tree["N1"], tree["N2"]),
+                       tree["packets"], fields_from_psih(cpu_case.psih_fn(tree["sol"]),
+                                                         cpu_case.model.grid, cpu_case.rp.interp))
+    drv.run(1, 5)
+    assert rel_gap(res.sh.unshard(sol_g), drv.sim.sol) < 1e-5
+    assert packet_gap(gather_packets(pk_g, res.sh.mesh), drv.sim.packets) < 1e-4
+
+
+@pytest.mark.cuda
+def test_sharded_twolayer_and_thomasyamada_match_replicated(nccl_mesh, cuda_device):
+    """On a mesh of one, against the replicated port on the card, within the
+    JAX tests' limits: ``twolayer --sharded`` at 256^2 x 4,096 packets on
+    the taps path, 2 frames (no table-kernel launch); the sharded
+    Thomas-Yamada phase at 128^2 (IF-AB3, 20 steps in 2 chunks) against
+    the replicated phase."""
+    import time
+
+    from juliaraytracingsw_tpu_torch.core.grid import make_grid
+    from juliaraytracingsw_tpu_torch.core.steppers import zero_clock
+    from juliaraytracingsw_tpu_torch.coupled import ty_driver
+    from juliaraytracingsw_tpu_torch.coupled.initial_conditions import ty_initial_condition
+    from juliaraytracingsw_tpu_torch.experiments import __main__ as cli
+    from juliaraytracingsw_tpu_torch.models import thomasyamada
+    from juliaraytracingsw_tpu_torch.parallel.mesh import gather_packets
+    from juliaraytracingsw_tpu_torch.parallel.sharded import ShardedThomasYamada
+
+    two = coupled_argv("twolayer", 256, 64, 2, platform=cuda_device, gather="taps")
+    before = dict(ray_step.table_launches)
+    _, case, res = _sharded_run(two + ["--sharded"], nccl_mesh)
+    torch.cuda.synchronize()
+    assert case.rp.gather == "taps" and ray_step.table_launches == before
+    rep = drive_cli(two).sim
+    assert _sharded_close(res.sh.unshard(res.sol), rep.sol)
+    got = gather_packets(res.packets, res.sh.mesh)
+    assert all(_sharded_close(getattr(got, c), getattr(rep.packets, c), packets=True)
+               for c in "xykl")
+
+    args = cli.build_parser().parse_args(["thomasyamada", "--nx", "128", "--platform",
+                                          cuda_device])
+    cfg = cli.setup_thomasyamada(args, quiet)
+    cfg.stepper = "IFMAB3"
+    grid = make_grid(128, Lx=cfg.Lx, device=cuda_device)
+    sol0 = ty_initial_condition(grid, np.random.default_rng(cfg.seed), cfg.k0g_range,
+                                cfg.k0w_range, cfg.at, cfg.ag, cfg.aw)
+    model = thomasyamada.make_model(grid, nu=cfg.nu, nnu=cfg.nnu, Ro=cfg.Ro)
+    tsh = ShardedThomasYamada(grid, model.params, nccl_mesh, dt=cfg.dt)
+    diags = {k: [] for k in ty_driver.DIAG_KEYS}
+    sharded, _ = ty_driver._phase_sharded(tsh, cfg, tsh.shard_solution(sol0),
+                                          zero_clock(device=cuda_device), cfg.dt, 20, 10, None,
+                                          diags, "main", time.time())
+    replicated, _ = ty_driver._phase(model, cfg, sol0, zero_clock(device=cuda_device), cfg.dt,
+                                     20, 10, None, {k: [] for k in ty_driver.DIAG_KEYS}, "main",
+                                     time.time())
+    assert _sharded_close(tsh.unshard(sharded), replicated)

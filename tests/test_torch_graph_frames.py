@@ -28,6 +28,7 @@ torch = pytest.importorskip("torch")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from torch.utils._pytree import tree_leaves  # noqa: E402
+from torch_card import cuda_device, kernel_runs, setup_case  # noqa: E402, F401
 
 from juliaraytracingsw_tpu_torch.coupled import driver as drv_mod  # noqa: E402
 from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
@@ -40,13 +41,6 @@ K = 4          # flow steps a frame
 FRAMES = 5     # frames after the bootstrap: one eager, one captured, three more replays
 
 
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA (a CUDA graph has no CPU mode)")
-    return "cuda"
-
-
 def _argv(cmd: str, platform: str, nx: int, sqrtp: int, *extra: str) -> list[str]:
     return [cmd, "--nx", str(nx), "--sqrt-npackets", str(sqrtp), "--interp", "bilinear",
             "--table-dtype", "bfloat16", "--gather", "patch", "--seed", "3",
@@ -56,8 +50,7 @@ def _argv(cmd: str, platform: str, nx: int, sqrtp: int, *extra: str) -> list[str
 def _driver(cmd: str, platform: str, nx: int, sqrtp: int, *extra: str, **changes):
     """(driver, case) of a command line, the driver changed by ``changes``
     and started from the case's state."""
-    args = cli.build_parser().parse_args(_argv(cmd, platform, nx, sqrtp, *extra))
-    case = cli.SETUPS[args.cmd](args, *(() if cmd == "single-wave" else (lambda s: None,)))
+    args, case = setup_case(_argv(cmd, platform, nx, sqrtp, *extra))
     drv = cli.make_driver(args, case, log_fn=lambda s: None)
     if changes:
         drv = dataclasses.replace(drv, **changes)
@@ -273,16 +266,11 @@ def test_rk4_graph_frames_match_eager(cuda_device):
     _graphed_vs_eager(drv, "coupled", FRAMES)
     launches = ray_step.table_launches["bilinear"]
     builds = pair_table.pair_table_launches["bilinear"]
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with kernel_runs() as runs:
         drv.run(3, K)
-        torch.cuda.synchronize()
     # the replays run the table kernel and the pair table's once a step,
     # with no host launch, and no roll
-    runs = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
-    assert sum(1 for name in runs if "ray_step_table_kernel" in name) == 3 * K
-    assert sum(1 for name in runs if "pair_table_kernel" in name) == 3 * K
-    assert not [name for name in runs if "roll_cuda_kernel" in name]
+    assert runs["table"] == runs["pair table"] == 3 * K and runs["roll"] == 0
     assert ray_step.table_launches["bilinear"] == launches
     assert pair_table.pair_table_launches["bilinear"] == builds
     assert obs.graph_frames == {**{key: 0 for key in obs.graph_frames}, "captured": 1,
@@ -324,13 +312,9 @@ def test_twolayer_taps_graph_frames_match_eager(cuda_device):
     assert obs.graph_frames["captured"] == 1
     assert obs.graph_frames["replayed"] == FRAMES - 1
     gathers = dict(interp.taps_gathers)
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    with kernel_runs() as runs:
         drv.run(3, K)
-        torch.cuda.synchronize()
-    runs = sum(1 for e in prof.events() if e.device_type.name == "CUDA"
-               and "_scatter_gather_elementwise_kernel" in e.name)
-    assert runs == 4 * 3 * K
+    assert runs["taps gather"] == 4 * 3 * K
     assert interp.taps_gathers == gathers
     assert obs.graph_frames["captured"] == 1
     assert obs.graph_frames["replayed"] == FRAMES + 2

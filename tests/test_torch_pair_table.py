@@ -24,6 +24,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from torch.utils._pytree import tree_map_only  # noqa: E402
+from torch_card import cuda_device  # noqa: E402, F401
 
 from juliaraytracingsw_tpu_torch.core.steppers import Clock  # noqa: E402
 from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
@@ -36,13 +37,6 @@ from juliaraytracingsw_tpu_torch.rays.resample import k_cutoff_reset  # noqa: E4
 
 INTERPS = ["bilinear", "bspline", "bicubic"]
 DTYPES = ["float32", "bfloat16"]
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with CUDA (the kernel has no CPU mode)")
-    return torch.device("cuda")
 
 
 def _fields(interp, ny, nx, seed=0, device="cpu", dtype=np.float32):

@@ -10,8 +10,8 @@ wrapped with Python's ``remainder``: the tests pin the twin's gather to that
 formula, computed in numpy, and to the JAX package's ``_gather_patch_rows``
 run eagerly (under ``jit`` XLA divides by the constant's reciprocal, which
 moves points within an ulp of a face). The kernels themselves are held
-against these twins on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py``).
+against these twins on the card, at ragged sizes and at the hero's, by
+the ``cuda`` tests of ``tests/test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
