@@ -23,13 +23,18 @@ replays as one CUDA graph (``torch.cuda.CUDAGraph``, one
 ``cudaGraphLaunch``) wherever it can: from its second call on, when
 nothing in the state requires grad, ``remat`` is off, the host's
 ``clock.step`` is past the steppers' forward-Euler bootstrap
-(``core/steppers.BOOTSTRAP_STEPS``) and the ray step never waits on the
-device (every flow frame; the coupled frames of ``rk4`` and ``dopri5``,
-not ``midpoint``, ``adaptive`` or ``adaptive7``). The first call runs
+(``core/steppers.BOOTSTRAP_STEPS``) and the host never tests a loop of
+the ray step (every flow frame; the coupled frames of ``rk4``, ``dopri5``
+and ``adaptive`` where its loop runs on the device, the patch gather's
+'while' loop (``rays/raytrace.fused_while``); not ``midpoint``,
+``adaptive7`` or any other ``adaptive``). The first call runs
 eager: it creates the cuFFT plans and loads the kernels the capture then
 records. The capture clones the state into the graph's static buffers,
 and every replay leaves its result there, so ``drv.sim``'s tensors are
 the driver's own, overwritten by the next frame: copy them to keep them.
+A graphed adaptive frame writes each step's info into static buffers of
+the graph, and the driver appends copies of them to ``ray_infos`` after
+each replay.
 ``observability.graph_frames`` counts how each frame ran
 (``eager.<reason>`` from ``observability.GRAPH_REASONS``). The kernels'
 launch counters (``ops/ray_step``, ``ops/pair_table``, ``ops/birth_death``) and the taps
@@ -68,7 +73,7 @@ from ..models.base import Model, build_stepper
 from ..rays.interp import bspline_prefilter_mask
 from ..rays.packets import Packets
 from ..rays.raytrace import (RayParams, _use_patch, build_pair, check_ray_params,
-                             fields_from_psih, raytrace, raytrace_adaptive,
+                             fields_from_psih, fused_while, raytrace, raytrace_adaptive,
                              raytrace_tables_fb, resolve_gather, sample_gradients,
                              sample_velocity)
 from ..rays.prng import prng_key
@@ -84,9 +89,12 @@ __all__ = [
 
 # fixed-step integrators, then the adaptive ones
 RAY_METHODS = ("rk4", "dopri5", "midpoint", "adaptive", "adaptive7")
-# the ray methods whose step waits on the device: implicit midpoint in its
-# Newton loop, the adaptive integrators after each attempt
+# the ray methods whose step may wait on the device: implicit midpoint in
+# its Newton loop, the adaptive integrators after each attempt (but DP5(4)
+# in the 'while' loop over the pair table, whose loop runs on the card)
 HOST_WAIT_METHODS = ("midpoint", "adaptive", "adaptive7")
+# the embedded pair of each adaptive method
+ADAPTIVE_PAIRS = {"adaptive": "dopri5", "adaptive7": "rkf78"}
 
 
 def derive_dt(cfltune: float, umax: float, dx: float) -> float:
@@ -179,7 +187,7 @@ def make_coupled_frame(
     prefilter = _prefilter(grid, rp.interp)
     ray_opts = dict(ray_opts or {})
     if adaptive:
-        ray_opts.setdefault("pair", "rkf78" if ray_method == "adaptive7" else "dopri5")
+        ray_opts.setdefault("pair", ADAPTIVE_PAIRS[ray_method])
 
     def one(sol, clock, sstate, packets, fields_old, bd):
         """One interleaved flow/ray step -> the next carry and the adaptive
@@ -257,17 +265,24 @@ def make_flow_frame(model: Model, step_fn, psih_fn, rp: RayParams, flow_steps: i
 
 
 def eager_reason(device: torch.device, requires_grad: bool, remat: bool,
-                 ray_method: str | None, step: int, calls: int) -> str | None:
+                 ray_method: str | None, step: int, calls: int, gather: str,
+                 loop: str) -> str | None:
     """Why a frame runs eager (one of ``observability.GRAPH_REASONS``), or
     None when it may run as a CUDA graph: the state's ``device``, whether a
     state tensor ``requires_grad``, ``remat``, the coupled frame's
     ``ray_method`` (None for a flow frame), the host's ``clock.step`` at the
-    frame's start and the ``calls`` of the same frame made before."""
+    frame's start, the ``calls`` of the same frame made before, and the
+    ray step's ``gather`` ('patch' or 'taps', as resolved) and adaptive
+    ``loop`` ('while' or 'scan'): the host tests the loop of ``midpoint``,
+    ``adaptive7`` and ``adaptive`` but where ``rays/raytrace.fused_while``
+    holds (on the card its loop runs on the device)."""
     if torch.device(device).type != "cuda":
         return "cpu"
     if requires_grad or remat:
         return "grad"
-    if ray_method in HOST_WAIT_METHODS:
+    if ray_method in HOST_WAIT_METHODS and not (
+            ray_method in ADAPTIVE_PAIRS
+            and fused_while(gather == "patch", ADAPTIVE_PAIRS[ray_method], loop)):
         return "loop"
     if step < BOOTSTRAP_STEPS:
         return "bootstrap"
@@ -318,26 +333,40 @@ class _FrameGraph:
     ``buffers`` clones the state's tensors into the buffers, so that no
     tensor a caller holds is ever written and no two buffers alias (as
     ``init``'s ``AB3State(z, z)`` does). ``capture`` records the frame, then
-    the copies of its outputs back into the buffers. ``replay`` copies a
+    the copies of its outputs back into the buffers, and of the adaptive
+    steps' infos into ``info`` ((steps, 2) float32 t_reached, h_final and
+    (steps, 2) int32 n_accepted, n_rejected). ``replay`` copies a
     state the driver was handed (by ``init``, ``restore`` or a ``sim`` put
     in place) into the buffers, replays, and returns the state over the
-    buffers. The kernels' launch counters count the capture's launches,
-    not the replays': a replay runs them with no host call."""
+    buffers; ``step_infos`` copies of the replay's infos. The kernels'
+    launch counters count the capture's launches, not the replays': a
+    replay runs them with no host call."""
 
     def __init__(self, frame: Callable, kind: str, flow_steps: int):
         self.frame, self.kind, self.flow_steps = frame, kind, flow_steps
         self.static: list = []
         self.graph = None
+        self.info: tuple | None = None
 
     def buffers(self, sim: SimState) -> SimState:
         self.static = [t.clone() for t in _carried(sim, self.kind)]
         return _with_carried(sim, self.kind, self.static, sim.clock.step)
 
-    def capture(self, sim: SimState) -> None:
+    def capture(self, sim: SimState, infos: list) -> None:
+        """Record the frame; ``infos`` is the list its ``ray_info_fn``
+        appends to, of which the capture's own entries are taken out (a
+        capture runs nothing: the replays write their values)."""
+        n0 = len(infos)
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(sim.sol.device), torch.no_grad(), \
                 torch.cuda.graph(self.graph):
             _copy_back(self.static, _carried(self.frame(sim), self.kind))
+            taken = infos[n0:]
+            if taken:
+                self.info = tuple(torch.stack([i[key] for i in taken for key in keys]).view(-1, 2)
+                                  for keys in (("t_reached", "h_final"),
+                                               ("n_accepted", "n_rejected")))
+        del infos[n0:]
         graph_frames["captured"] += 1
 
     def replay(self, sim: SimState) -> SimState:
@@ -353,6 +382,15 @@ class _FrameGraph:
             self.graph.replay()
         graph_frames["replayed"] += 1
         return _with_carried(sim, self.kind, self.static, sim.clock.step + self.flow_steps)
+
+    def step_infos(self) -> list[dict]:
+        """The last replay's adaptive infos, one a flow step, as 0-d views
+        of copies of the graph's buffers (none for other frames)."""
+        if self.info is None:
+            return []
+        times, counts = (b.clone() for b in self.info)
+        return [dict(t_reached=t[0], h_final=t[1], n_accepted=c[0], n_rejected=c[1])
+                for t, c in zip(times, counts)]
 
 
 @dataclass
@@ -371,10 +409,11 @@ class CoupledDriver:
     ``remat=True`` checkpoints each coupled step of a frame for the
     backward pass (``make_coupled_frame``).
 
-    On the card the flow frames and the ``rk4``/``dopri5`` coupled frames
-    replay as CUDA graphs from their second call on, once the stepper's
-    bootstrap is past and nothing requires grad (the module's docstring
-    says when exactly); the midpoint and adaptive frames, and every frame
+    On the card the flow frames, the ``rk4``/``dopri5`` coupled frames and
+    the ``adaptive`` ones whose loop runs on the device replay as CUDA
+    graphs from their second call on, once the stepper's bootstrap is past
+    and nothing requires grad (the module's docstring says when exactly);
+    the midpoint, ``adaptive7`` and other adaptive frames, and every frame
     on the CPU, run eager. ``sim``'s tensors are the driver's own buffers,
     which the next frame overwrites: copy them to keep them. The capture
     clones the state into the buffers, and a state handed in later
@@ -540,7 +579,10 @@ class CoupledDriver:
         reason = eager_reason(self.sim.sol.device,
                               any(t.requires_grad for t in _carried(self.sim, kind)),
                               self.remat and coupled, self.ray_method if coupled else None,
-                              self.sim.clock.step, calls)
+                              self.sim.clock.step, calls,
+                              "patch" if _use_patch(self.rp) else "taps",
+                              # raytrace_adaptive's default loop is 'scan'
+                              (self.ray_opts or {}).get("loop", "scan"))
         if reason is not None:
             graph_frames["eager." + reason] += 1
             self.sim = frame(self.sim)
@@ -551,9 +593,10 @@ class CoupledDriver:
             # the buffers stand for the state from here, so that the frame's
             # input is freed before the capture allocates
             self.sim = graph.buffers(self.sim)
-            graph.capture(self.sim)
+            graph.capture(self.sim, self.ray_infos)
             self._graphs[key] = graph
         self.sim = graph.replay(self.sim)
+        self.ray_infos.extend(graph.step_infos())
 
     # --- helpers -------------------------------------------------------------
     def _check_nan(self, where: str):

@@ -426,9 +426,12 @@ def _table_specs(T_pair, st, scal, interp: str, n_scal: int, ny: int, nx: int, r
             ("st", st, (5, n), real), ("scal", scal, (n_scal,), real))
 
 
-def _launch(fn, args, st, scal, out, floats) -> None:
+def _launch(fn, args, st, scal, out, floats, stream=None) -> None:
+    """Launch on ``stream`` (a ``cudaStream_t`` as an int), by default the
+    current stream of ``st``'s device."""
     with torch.cuda.device(st.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        if stream is None:
+            stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, st.data_ptr(), scal.data_ptr(), out.data_ptr(), st.shape[-1],
                  *map(ctypes.c_float, floats), stream)
     if err != 0:
@@ -603,17 +606,28 @@ def table_substep(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
 
 
 def table_attempt(T_pair: torch.Tensor, st: torch.Tensor, scal: torch.Tensor, *,
-                  rp, interp: str, ny: int, nx: int) -> torch.Tensor:
+                  rp, interp: str, ny: int, nx: int, out: torch.Tensor | None = None,
+                  stream: int | None = None) -> torch.Tensor:
     """One fused embedded DP5(4) attempt reading the pair table itself:
     ``(ny*nx, 2W) f32|bf16, (5, N), (5,) -> (5, N)``.
 
     Forward only. CUDA tensors go through the hand-written kernel (and
     count one table attempt launch); CPU tensors go through the plain twin.
-    Anything else raises."""
-    if _runs_on_cpu(_table_specs(T_pair, st, scal, interp, 5, ny, nx), name="table attempt"):
+    Anything else raises. On the card the kernel writes ``out`` (5, N)
+    float32 where it is given and launches on ``stream`` (a ``cudaStream_t``
+    as an int) where it is given: the adaptive loop's slot on the device
+    (``ops/adaptive_loop``) allocates nothing and may launch into the body
+    of a CUDA graph's WHILE node."""
+    specs = _table_specs(T_pair, st, scal, interp, 5, ny, nx)
+    if out is not None:
+        specs += (("out", out, (5, st.shape[-1]), _F32),)
+    if _runs_on_cpu(specs, name="table attempt"):
+        if out is not None:
+            raise ValueError("out= is for the CUDA kernel; the twin returns a new tensor")
         return table_attempt_torch(T_pair, st, scal, rp=rp, interp=interp, ny=ny, nx=nx)
-    out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=st.device)
+    if out is None:
+        out = torch.empty((5, st.shape[-1]), dtype=torch.float32, device=st.device)
     _launch(_kernel_fn("jrsw_ray_attempt_table", _TABLE_HEAD, 6),
-            _table_args(interp, T_pair, ny, nx), st, scal, out, _attempt_floats(rp))
+            _table_args(interp, T_pair, ny, nx), st, scal, out, _attempt_floats(rp), stream)
     table_attempt_launches[interp] += 1
     return out

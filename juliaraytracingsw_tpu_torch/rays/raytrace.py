@@ -37,9 +37,10 @@ Integrators:
   or 'taps' (autograd through the taps path at the same inputs).
 - ``raytrace_adaptive``: embedded Dormand-Prince 5(4) or Fehlberg 7(8)
   with one shared step size. With the patch gather, pair 'dopri5' and
-  loop 'while' each attempt is the fused attempt over the pair table
-  (``ops/ray_step.table_attempt``, forward only); every other combination
-  runs the per-stage attempt.
+  loop 'while' (``fused_while``) each attempt is the fused attempt over the
+  pair table (``ops/ray_step.table_attempt``, forward only), and on the
+  card the whole loop runs on the device (``ops/adaptive_loop``); every
+  other combination runs the per-stage attempt.
 
 ``gather='auto'`` picks one of the two per run (``resolve_gather``): the
 patch path iff ``PATCH_TAPS_CROSSOVER * n_packets >= ny * nx``, the
@@ -56,6 +57,7 @@ from typing import NamedTuple
 import torch
 
 from ..core.spectral import irfft2, spectral_gradients
+from ..ops.adaptive_loop import DeviceLoop
 from ..ops.pair_table import pair_table
 from ..ops.ray_step import recompute_vjp, table_attempt, table_substep
 from ..utils import observability
@@ -71,6 +73,7 @@ __all__ = [
     "check_ray_params",
     "fields_from_psih",
     "fields_from_velocity_spectra",
+    "fused_while",
     "make_pair_table",
     "raytrace",
     "raytrace_adaptive",
@@ -588,6 +591,43 @@ def sample_gradients(packets: Packets, fields, rp: RayParams):
 
 # --- adaptive integration ----------------------------------------------------
 
+def fused_while(use_patch: bool, pair: str, loop: str) -> bool:
+    """Whether ``raytrace_adaptive`` runs the fused attempt: the patch
+    gather, pair 'dopri5' and loop 'while'. On the card that loop runs on
+    the device and never waits on the host, so a CUDA graph can hold it."""
+    return use_patch and pair == "dopri5" and loop == "while"
+
+
+def _adapt(err, t, h, h_eff, done, eps, exponent):
+    """The controller of one attempt slot at clock ``t`` and step ``h``,
+    given the error norm ``err`` of the attempt of size ``h_eff`` (none when
+    ``done``) -> (accept, reject, t_next, h_next)."""
+    accept = (err <= 1.0) & ~done
+    reject = (err > 1.0) & ~done
+    t_next = torch.where(accept, t + h_eff, t)
+    fac = torch.clip(0.9 * torch.clamp_min(err, 1e-10) ** (-exponent), 0.2, 5.0)
+    h_next = torch.where(done, h, torch.maximum(h_eff * fac, eps))
+    return accept, reject, t_next, h_next
+
+
+def _while_on_device(loop: DeviceLoop):
+    """The fused 'while' loop on the card: under a CUDA graph's capture one
+    WHILE node that never waits; eager, slot after slot, the host reading
+    the loop's test before the first and after each one."""
+    if torch.cuda.is_current_stream_capturing():
+        loop.capture()
+    else:
+        loop.start()
+        with observability.wait("rays.adaptive"):
+            go = loop.go()
+        while go:
+            with observability.span("rays.attempt"):
+                loop.slot()
+                with observability.wait("rays.adaptive"):
+                    go = loop.go()
+    return loop.packets(), loop.info()
+
+
 def raytrace_adaptive(
     packets: Packets,
     fields_old,
@@ -611,18 +651,22 @@ def raytrace_adaptive(
 
     ``loop='scan'`` runs exactly ``max_steps`` attempt slots, the finished
     ones masked, and never waits on the device; ``loop='while'`` stops once
-    the clock reaches ``t1 - eps`` and waits on the device for that test
-    before the first attempt and after each one (``utils/observability``
-    counts each such wait at the site 'rays.adaptive'). Under a profiler
-    the table build is the span ``rays.table`` and each attempt slot a
-    span ``rays.attempt``.
+    the clock reaches ``t1 - eps`` (or after ``max_steps`` slots) and waits
+    on the device for that test before the first attempt and after each
+    one (``utils/observability`` counts each such wait at the site
+    'rays.adaptive'). Under a profiler the table build is the span
+    ``rays.table`` and each attempt slot a span ``rays.attempt``.
 
-    The patch gather with ``'dopri5'`` and ``'while'`` runs each attempt
-    through ``table_attempt`` (the CUDA kernel on the card, which reads the
-    pair table itself; its twin on the CPU), which scales the error by
-    patch-local positions; every other combination runs the per-stage
-    attempt, which scales it by global positions, as the reference does in
-    each case.
+    The patch gather with ``'dopri5'`` and ``'while'`` (``fused_while``)
+    runs each attempt through ``table_attempt`` (the CUDA kernel on the
+    card, which reads the pair table itself; its twin on the CPU), which
+    scales the error by patch-local positions; every other combination runs
+    the per-stage attempt, which scales it by global positions, as the
+    reference does in each case. On the card that loop keeps its clock,
+    step size, counters and test on the device (``ops/adaptive_loop``:
+    three launches a slot); under a CUDA graph's capture it is one
+    conditional WHILE node, which waits on nothing, and eager it gives the
+    same bits with its waits.
 
     Returns ``(packets, info)``, info = dict of 0-d tensors ``t_reached``,
     ``h_final``, ``n_accepted``, ``n_rejected``; ``t_reached < t1`` means
@@ -646,7 +690,11 @@ def raytrace_adaptive(
         with observability.span("rays.table"):
             T_pair = build_pair(fields_old, fields_new, rp)
     C, A, BH, BE, exponent = _EMBEDDED_PAIRS[pair]
-    fused = use_patch and loop == "while" and pair == "dopri5"
+    fused = fused_while(use_patch, pair, loop)
+    if fused and dev.type == "cuda":
+        return _while_on_device(DeviceLoop(
+            T_pair, packets, t0, t1, rp=rp, ny=ny, nx=nx, rtol=rtol, atol=atol,
+            max_steps=max_steps, init_substeps=init_substeps, exponent=exponent))
     n_total = packets.n
     eps = 1e-9 * torch.abs(span)
     tols = torch.tensor([rtol, atol], dtype=packets.x.dtype, device=dev)
@@ -693,12 +741,8 @@ def raytrace_adaptive(
                       else _make_taps_sampler(fields_old, fields_new, rp))
             p5, e_sum = attempt(p, t, h_att, sample)
             err = err_norm(e_sum)
-        accept = (err <= 1.0) & ~done
-        reject = (err > 1.0) & ~done
+        accept, reject, t_next, h_next = _adapt(err, t, h, h_eff, done, eps, exponent)
         p_next = Packets(*(torch.where(accept, a, b) for a, b in zip(p5, p)))
-        t_next = torch.where(accept, t + h_eff, t)
-        fac = torch.clip(0.9 * torch.clamp_min(err, 1e-10) ** (-exponent), 0.2, 5.0)
-        h_next = torch.where(done, h, torch.maximum(h_eff * fac, eps))
         return p_next, t_next, h_next, accept, reject
 
     p, t, h = packets, t0, span / init_substeps

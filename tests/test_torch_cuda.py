@@ -5,7 +5,9 @@ CPU, with the kernels' runs counted.
 - the fused RK4 substep and DP5(4) attempt kernels, in their first cut and
   their table form, at ragged sizes and at the hero's (1,048,576 packets
   over a 512^2 table), the attempt's error row where the truncation error
-  dominates, the substep's backward; the kernel library's entry points;
+  dominates, the substep's backward; the adaptive loop's start, decision
+  and apply kernels against the CPU's controller; the kernel library's
+  entry points;
 - the probe kernels against their plain versions;
 - the birth/death kernel against its twin;
 - the coupled paths through the command line's set-up, GPU against CPU:
@@ -301,6 +303,77 @@ def test_table_substep_backward_matches_twin_autograd(interp, table_dtype, n, cu
                                    atol=1e-4 * float(ref[0].abs().max()))
     for a, b in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+# (init_substeps, max_steps, the error norm each slot's esum column gives)
+SLOT_CASES = {"accept": (4, 16, (0.5, 0.3, 0.7)), "reject": (4, 16, (2.0, 1.5, 0.9)),
+              "last": (1, 16, (0.01, 0.01)), "max_steps": (4, 2, (0.5, 0.5))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 400_003])
+@pytest.mark.parametrize("case", sorted(SLOT_CASES))
+def test_adaptive_slot_kernels_match_the_controller(case, n, cuda_device):
+    """The device loop's start, decision and apply kernels
+    (``ops/adaptive_loop``) slot by slot against the controller of
+    ``raytrace_adaptive``'s ``body`` on the CPU (``_adapt``), fed the card's
+    state before each slot and an error column that gives a chosen norm:
+    accept and reject as the CPU decides them, the counters and the loop
+    test exact, t, h and the next attempt's scal within float32 rounding
+    (the error column is summed in another order), the packets replaced by
+    p5 on an accepted slot and untouched otherwise. "last" accepts the
+    whole interval, after which a slot changes nothing; "max_steps" stops
+    the loop short of t1. 400,003 packets: more than the decision's 1,024
+    blocks of 256 threads cover in one pass."""
+    from juliaraytracingsw_tpu_torch.ops.adaptive_loop import CTL_F, CTL_I, DeviceLoop
+    from juliaraytracingsw_tpu_torch.rays.raytrace import _adapt
+
+    init_substeps, max_steps, errs = SLOT_CASES[case]
+    T_pair, st, rp = _table_inputs("bilinear", "float32", cuda_device, n, nx=16)
+    t0, t1 = (torch.tensor(v, device=cuda_device) for v in (0.25, 0.75))
+    loop = DeviceLoop(T_pair, Packets(*st.unbind(0)), t0, t1, rp=rp, ny=16, nx=16,
+                      rtol=1e-3, atol=1e-6, max_steps=max_steps, init_substeps=init_substeps,
+                      exponent=0.2)
+    loop.start()
+    f, i = loop.ctl_f.cpu(), loop.ctl_i.cpu()
+    span, eps = t1.cpu() - t0.cpu(), 1e-9 * torch.abs(t1.cpu() - t0.cpu())
+    assert (f[CTL_F["t"]], f[CTL_F["h"]], f[CTL_F["eps"]]) == (t0.cpu(), span / init_substeps,
+                                                               eps)
+    assert i[:4].tolist() == [0, 0, 0, 1] and loop.go()
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    for slot, err_target in enumerate(errs):
+        f, i, before = loop.ctl_f.cpu(), loop.ctl_i.cpu(), loop.st.clone()
+        u = torch.rand(n, generator=gen, device=cuda_device) + 0.5
+        esum = u * (4 * n * err_target ** 2 / float(u.double().sum()))
+        p5 = loop.st[:4] + torch.rand(4, n, generator=gen, device=cuda_device)
+        loop.out5.copy_(torch.cat([p5, esum[None]]))
+        loop.decide()
+        loop.apply()
+        t, h, t1c, eps = (f[CTL_F[k]] for k in ("t", "h", "t1", "eps"))
+        done = t >= t1c - eps
+        h_eff = torch.minimum(h, t1c - t)
+        err = torch.sqrt(esum.cpu().sum() / (4.0 * n))
+        accept, reject, t_next, h_next = _adapt(err, t, h, h_eff, done, eps, 0.2)
+        f2, i2 = loop.ctl_f.cpu(), loop.ctl_i.cpu()
+        assert bool(i2[CTL_I["accepted"]]) == bool(accept)
+        assert int(i2[CTL_I["n_accepted"]]) == int(i[CTL_I["n_accepted"]]) + int(accept)
+        assert int(i2[CTL_I["n_rejected"]]) == int(i[CTL_I["n_rejected"]]) + int(reject)
+        assert int(i2[CTL_I["slots"]]) == slot + 1
+        torch.testing.assert_close(f2[CTL_F["t"]], t_next, rtol=1e-6, atol=0)
+        torch.testing.assert_close(f2[CTL_F["h"]], h_next, rtol=1e-5, atol=0)
+        t2, h2 = f2[CTL_F["t"]], f2[CTL_F["h"]]
+        assert bool(i2[CTL_I["go"]]) == (bool(t2 < t1c - eps) and slot + 1 < max_steps)
+        h_att = torch.where(t2 >= t1c - eps, h2, torch.minimum(h2, t1c - t2))
+        assert loop.scal.cpu().tolist() == torch.stack(
+            [(t2 - t0.cpu()) / span, h_att / span, h_att, torch.tensor(1e-3),
+             torch.tensor(1e-6)]).tolist()
+        assert torch.equal(loop.st, torch.cat([p5, before[4:]]) if accept else before)
+    acc, rej = int(loop.ctl_i[CTL_I["n_accepted"]]), int(loop.ctl_i[CTL_I["n_rejected"]])
+    assert (acc, rej) == {"accept": (3, 0), "reject": (1, 2), "last": (1, 0),
+                          "max_steps": (2, 0)}[case]
+    assert not loop.go() if case in ("last", "max_steps") else loop.go()
+    if case == "last":
+        assert float(loop.ctl_f[CTL_F["t"]]) == 0.75
 
 
 @pytest.mark.cuda

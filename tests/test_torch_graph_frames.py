@@ -11,7 +11,9 @@ On the card (marked ``cuda``, skipped without one): graphed frames held
 bit-equal to eager frames over at least three replays at 64^2 and 4,096
 packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5, the
 two-layer RK4 frame on the taps path and the flow frame of each
-command-line setup; a restore into a graphed driver; a caller's initial
+command-line setup; the adaptive DP5(4) frame, its 'while' loop a WHILE
+node of the graph, at 128^2 and 65,536 packets, its steps' infos included;
+a restore into a graphed driver; a caller's initial
 state left untouched; the table kernel and the pair table's run once a
 step (no roll) and the taps gather once a stage by the replays, as a
 profiler trace finds them, with no host launch counted. These import no JAX:
@@ -33,7 +35,7 @@ from torch_card import cuda_device, kernel_runs, setup_case  # noqa: E402, F401
 from juliaraytracingsw_tpu_torch.coupled import driver as drv_mod  # noqa: E402
 from juliaraytracingsw_tpu_torch.experiments import __main__ as cli  # noqa: E402
 from juliaraytracingsw_tpu_torch.io.checkpoint import _flatten  # noqa: E402
-from juliaraytracingsw_tpu_torch.ops import pair_table, ray_step  # noqa: E402
+from juliaraytracingsw_tpu_torch.ops import adaptive_loop, pair_table, ray_step  # noqa: E402
 from juliaraytracingsw_tpu_torch.rays import interp  # noqa: E402
 from juliaraytracingsw_tpu_torch.utils import observability as obs  # noqa: E402
 
@@ -91,7 +93,7 @@ def _graphed_vs_eager(drv, kind: str, frames: int, k: int = K):
 # --- the rule ------------------------------------------------------------------
 
 GRAPHS = dict(device="cuda", requires_grad=False, remat=False, ray_method="rk4", step=3,
-              calls=1)
+              calls=1, gather="patch", loop="while")
 
 
 @pytest.mark.parametrize("change,reason", [
@@ -99,8 +101,13 @@ GRAPHS = dict(device="cuda", requires_grad=False, remat=False, ray_method="rk4",
     (dict(device="cpu", ray_method="adaptive", step=0, calls=0), "cpu"),
     (dict(requires_grad=True), "grad"),
     (dict(remat=True), "grad"),
-    (dict(ray_method="adaptive"), "loop"),
+    # DP5(4)'s 'while' loop over the pair table runs on the device
+    (dict(ray_method="adaptive"), None),
+    (dict(ray_method="adaptive", gather="taps"), "loop"),
+    (dict(ray_method="adaptive", loop="scan"), "loop"),
+    (dict(ray_method="adaptive", step=2), "bootstrap"),
     (dict(ray_method="adaptive7"), "loop"),
+    (dict(ray_method="adaptive7", gather="taps", loop="scan"), "loop"),
     (dict(ray_method="midpoint"), "loop"),
     (dict(step=2), "bootstrap"),
     (dict(step=0, calls=0), "bootstrap"),
@@ -295,6 +302,55 @@ def test_coupled_graph_frames_match_eager(cuda_device, extra):
     assert obs.graph_frames["replayed"] == FRAMES - 1
     if drv.birth_death:
         assert int(drv.sim.bd.births) > 0
+
+
+INFO_KEYS = ("t_reached", "h_final", "n_accepted", "n_rejected")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rtol,atol,max_steps", [(1e-3, 1e-6, 16), (1e-8, 1e-11, 64),
+                                                 (1e-8, 1e-11, 2)],
+                         ids=["one_attempt", "rejects", "max_steps_2"])
+def test_adaptive_graph_frames_match_eager(cuda_device, rtol, atol, max_steps):
+    """DP5(4) in the 'while' loop over bf16 bilinear tables at 128^2 x
+    65,536 packets: frames whose loop is a WHILE node of the graph, bit-equal
+    to eager frames (the same kernels, the host testing the loop) over four
+    replays, each step's info included; at the adaptive hero's tolerances
+    one attempt a step, at rtol 1e-8 rejections (3-5 a step from the
+    third step on, as on the CPU), and with two slots at most steps that
+    stop short of t1 (a rejected first attempt shrinks h below the
+    interval), as eager. The capture holds one WHILE node a step;
+    no adaptive frame runs eager for its loop."""
+    drv, _ = _driver("rsw", cuda_device, 128, 256, "--ray-method", "adaptive",
+                     "--ray-rtol", repr(rtol), "--ray-atol", repr(atol),
+                     "--ray-max-steps", str(max_steps))
+    drv.ray_opts.update(init_substeps=1, loop="while")
+    obs.reset_graph_frames()
+    drv.spinup(4, chunk=4)
+    nodes = adaptive_loop.launches["while_nodes"]
+    ref = _copy(drv.sim)
+    frame = drv._get_frame("coupled", K)
+    decisions = []
+    for _ in range(FRAMES):
+        drv.run(1, K)
+        ref = frame(ref)       # its infos follow the driver's in drv.ray_infos
+        _assert_equal(drv.sim, ref)
+        graphed, eager = drv.ray_infos[:K], drv.ray_infos[K:]
+        assert len(graphed) == len(eager) == K
+        for g, e in zip(graphed, eager):
+            for key in INFO_KEYS:
+                assert g[key].dtype == e[key].dtype and torch.equal(g[key], e[key]), key
+        decisions += [(int(i["n_accepted"]), int(i["n_rejected"])) for i in graphed]
+    assert obs.graph_frames["captured"] == 1 and obs.graph_frames["replayed"] == FRAMES - 1
+    assert obs.graph_frames["eager.loop"] == 0 and obs.graph_frames["eager.first_call"] == 1
+    assert adaptive_loop.launches["while_nodes"] == nodes + K
+    if max_steps == 16:
+        assert decisions == [(1, 0)] * (FRAMES * K)
+    elif max_steps == 2:
+        assert all(a + r <= 2 for a, r in decisions)
+        assert any(r >= 1 and a + r == 2 for a, r in decisions)
+    else:
+        assert sum(r for _, r in decisions) > 0 and all(a >= 1 for a, _ in decisions)
 
 
 @pytest.mark.cuda
