@@ -3,6 +3,10 @@ drives it: ``experiments.__main__``'s parser, its ``setup_rsw`` /
 ``setup_twolayer`` and ``make_driver``, without writers, then
 ``CoupledDriver.init`` with the benchmark's inputs, ``spinup`` and
 ``run``. Nothing here computes what the program computes.
+
+A configuration's ``flags`` (long options of the command line, each with
+its value; ``true`` a bare flag) follow the model's part of its command
+line, in the file's order.
 """
 from __future__ import annotations
 
@@ -20,9 +24,23 @@ def _num(x) -> str:
     return repr(float(x))
 
 
+def _flag(name: str, value) -> list[str]:
+    if value is True:
+        return [name]
+    if isinstance(value, bool):
+        raise ValueError(f"flag {name} is false: a bare flag is true, else left out")
+    return [name, _num(value) if isinstance(value, float) else str(value)]
+
+
 def argv(cfg: dict, traffic: dict, seed: int, device: str) -> list[str]:
     """The command line of a configuration under a traffic mix; the CFL
-    tune is the one that gives the configuration's dt."""
+    tune is the one that gives the configuration's dt; the configuration's
+    ``flags`` last."""
+    flags = [w for name, value in (cfg.get("flags") or {}).items() for w in _flag(name, value)]
+    return _model_argv(cfg, traffic, seed, device) + flags
+
+
+def _model_argv(cfg: dict, traffic: dict, seed: int, device: str) -> list[str]:
     fl, pk, rays = cfg["flow"], cfg["packets"], cfg["rays"]
     dx = cfg["L"] / cfg["nx"]
     common = ["--nx", str(cfg["nx"]), "--L", _num(cfg["L"]),
@@ -98,6 +116,8 @@ class Program:
         sol0 = initial_flow(self.cfg, seed, self.device)
         st0 = packets(self.cfg, seed, self.device)
         pk = type(self.case.packets)(*(r.clone() for r in st0))
+        # the birth/death key from ``seed``, as ``--seed`` gives it
+        self.drv.bd_seed = seed
         self.drv.init(sol0, pk)
         self.infos = []
         return sol0, st0

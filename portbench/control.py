@@ -24,8 +24,9 @@ def readings(cell, seeds, control_seeds, device: str = "cuda", out=None):
     import torch
 
     from .cells import Program, snapshot
-    from .check import Follower, packet_rows, gaps_start, gaps_window, prec_of
-    from .run import attempts_of, set_up
+    from .check import (Follower, audit_events, gaps_events, gaps_start, gaps_window,
+                        observed_events, packet_rows, prec_of)
+    from .run import attempts_of, births_of, set_up
 
     cfg, tr = cell.config, cell.traffic
     prog = Program(cfg, tr, seeds[0], device, log_fn=lambda line: None)
@@ -46,16 +47,21 @@ def readings(cell, seeds, control_seeds, device: str = "cuda", out=None):
         attempts = attempts_of(prog.infos[n0:n1]) if adaptive else None
         ref_start = ref.setup(sol0, setup_steps)
         ref_w = ref.frames(snap_in, 2)
+        out_st, observed = packet_rows(snap_out.packets), observed_events(ref, snap_out)
         row = {"seed": seed, "frame": j,
                "program": {**gaps_start(start.sol, ref_start, sol0),
-                           **gaps_window(snap_out.sol, packet_rows(snap_out.packets), ref_w,
-                                         snap_in.sol, dx, cell.coupled, attempts)},
-               "excluded": int(ref_w[2].sum()), "control": None}
+                           **gaps_window(snap_out.sol, out_st, ref_w, snap_in.sol, dx,
+                                         cell.coupled, attempts),
+                           **gaps_events(ref, ref_w, observed, out_st)},
+               "excluded": int(ref_w[2].sum()), "marked": dict(ref.marked),
+               "audit": audit_events(ref, ref_w, observed),
+               "births": births_of(snap_out) - births_of(snap_in), "control": None}
         if seed in control_seeds:
             c_sol, c_st, _, c_acc, c_rej = ctl.frames(snap_in, 2)
             row["control"] = {**gaps_start(ctl.setup(sol0, setup_steps), ref_start, sol0),
                               **gaps_window(c_sol, c_st, ref_w, snap_in.sol, dx, cell.coupled,
-                                            (c_acc, c_rej) if adaptive else None)}
+                                            (c_acc, c_rej) if adaptive else None),
+                              **gaps_events(ref, ref_w, ctl.states, c_st)}
         row["seconds"] = time.perf_counter() - t0
         if device.startswith("cuda"):
             torch.cuda.empty_cache()

@@ -1,7 +1,10 @@
 """The whole step's share of the card's float32 peak: the floating-point
 work the profiled steps' algorithms need (``portbench/roofline`` over the
 configuration's ``work``: the flow step's transforms and block applies,
-the interpolation fields, each ray attempt's stages) over the profiled stretch's seconds times 67 TFLOP/s."""
+the interpolation fields, each ray attempt's stages, ``work``'s
+``ray_flops_per_packet`` where the configuration states it and the
+method's count otherwise) over the profiled stretch's seconds times 67
+TFLOP/s."""
 from portbench import roofline
 
 
@@ -17,7 +20,10 @@ def read(summary, cell):
         c = summary["counters"]
         attempts = (c["attempts_accepted"] + c["attempts_rejected"]
                     if method != "rk4" else steps)
-        flops += attempts * summary["n_packets"] * roofline.ray_flops_per_packet(method)
+        per_packet = work.get("ray_flops_per_packet")
+        if per_packet is None:
+            per_packet = roofline.ray_flops_per_packet(method)
+        flops += attempts * summary["n_packets"] * per_packet
     else:
         flops += summary["frames"] * roofline.fields_flops(work, n)
     return 100.0 * flops / (w * roofline.FP32_FLOPS_PER_S)

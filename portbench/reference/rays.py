@@ -5,15 +5,14 @@ flow snapshots.
     dk/dt = -(u_x k + v_x l)
     dl/dt = -(u_y k - u_x l)        (v_y = -u_x)
 
-Fields are stored at the configuration's table precision and interpolated
-bilinearly on the periodic grid; each stage blends the two time levels'
-interpolated values linearly in time. Positions are never wrapped, only
-cell indices are. Stage positions are taken relative to the packet's
-base cell at the start of the step (floor((x - x0) / dx)), and the
-adaptive error is scaled by those cell-relative positions: the semantics
-the configuration's patch tables state. ``k_cutoff_reset`` sends |k| >=
-k_cutoff back to (k0, 0), and marks the packets whose |k| lay so close to
-the cutoff that rounding could decide the reset.
+The fields are stored and interpolated as the configuration's interpolant
+states it (``interp/<name>.py``: ``table`` and ``sampler``). Positions are
+never wrapped, only cell indices are. Stage positions are taken relative
+to the packet's base cell at the start of the step (floor((x - x0) /
+dx)), and the adaptive error is scaled by those cell-relative positions:
+the semantics the configuration's patch tables state. What happens to the
+packets after a step (the k-cutoff reset, birth/death) is a packet event
+(``events/<name>.py``).
 """
 from __future__ import annotations
 
@@ -39,41 +38,17 @@ DP_B = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
 DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200, 187 / 2100, 1 / 40)
 DP_E = tuple(b - b4 for b, b4 in zip(DP_B, DP_B4))
 
-# |k|^2 within this share of k_cutoff^2 lets rounding decide the reset
-RESET_WINDOW = 1e-3
-
 
 class Rays:
-    """``st`` is ``(5, N)`` float32 [x, y, k, l, sign]."""
+    """``st`` is ``(5, N)`` float32 [x, y, k, l, sign]; ``interp`` the
+    interpolant's module."""
 
-    def __init__(self, g, f: float, Cg: float, k_cutoff: float, k0: float, p: Prec):
-        self.g, self.f, self.Cg, self.p = g, f, Cg, p
-        self.kc2, self.k0 = k_cutoff * k_cutoff, k0
+    def __init__(self, g, f: float, Cg: float, p: Prec, interp):
+        self.g, self.f, self.Cg, self.p, self.interp = g, f, Cg, p, interp
         self.dx = torch.full((), g.dx, dtype=torch.float32, device=g.K2.device)
 
-    # -- interpolation -------------------------------------------------------
     def _sampler(self, Fo, Fn, bx, by):
-        """``sample(lx, ly, a) -> (5, N)``: lx, ly in physical units from
-        the base cell's corner, a the time blend."""
-        n, dx = self.g.n, self.g.dx
-        Fo, Fn = Fo.reshape(5, -1), Fn.reshape(5, -1)
-        bxi, byi = bx.to(torch.int64), by.to(torch.int64)
-
-        def sample(lx, ly, a):
-            axes = []
-            for loc, base in ((lx / dx, bxi), (ly / dx, byi)):
-                j0 = torch.clip(torch.floor(loc), -1.0, 1.0)
-                axes.append((loc - j0, base + j0.to(torch.int64)))
-            (ax, ix), (ay, iy) = axes
-            ix0, ix1 = torch.remainder(ix, n), torch.remainder(ix + 1, n)
-            iy0, iy1 = torch.remainder(iy, n) * n, torch.remainder(iy + 1, n) * n
-            w = ((1.0 - ay) * (1.0 - ax), (1.0 - ay) * ax, ay * (1.0 - ax), ay * ax)
-            idx = (iy0 + ix0, iy0 + ix1, iy1 + ix0, iy1 + ix1)
-            vo = sum(Fo[:, i] * wi for i, wi in zip(idx, w))
-            vn = sum(Fn[:, i] * wi for i, wi in zip(idx, w))
-            return self.p.r((1.0 - a) * vo + a * vn)
-
-        return sample
+        return self.interp.sampler(Fo, Fn, bx, by, self.g, self.p)
 
     def _rhs(self, sample, x, y, k, l, sgn, a):
         u, v, ux, uy, vx = sample(x, y, a)
@@ -109,7 +84,7 @@ class Rays:
     # -- integrators ---------------------------------------------------------
     def tables(self, fields):
         """The field stack as the configuration's table stores it."""
-        return self.p.t(fields)
+        return self.interp.table(fields, self.g, self.p)
 
     def rk4(self, st, Fo, Fn, t0, t1):
         """One RK4 step from t0 to t1 -> ``(5, N)``."""
@@ -162,13 +137,3 @@ class Rays:
             h = torch.maximum(h_eff * fac, eps)
             slots += 1
         return st, n_acc, n_rej
-
-    def reset(self, st, ambiguous):
-        """k_cutoff_reset; ``ambiguous`` (N,) bool gains the packets whose
-        reset rounding could decide."""
-        mag2 = st[2] * st[2] + st[3] * st[3]
-        hit = mag2 >= self.kc2
-        ambiguous |= (mag2 - self.kc2).abs() <= RESET_WINDOW * self.kc2
-        k = torch.where(hit, torch.full_like(st[2], self.k0), st[2])
-        l = torch.where(hit, torch.zeros_like(st[3]), st[3])
-        return torch.stack([st[0], st[1], k, l, st[4]])

@@ -5,8 +5,9 @@ Byte counts are of the function a kernel computes, whatever implements
 it: each input read once and each output written once. The ray kernels
 read the pair-table rows of the cells that hold a packet, at the
 configuration's declared table dtype and width, the packets' state, and
-write their outputs (``chip_smoke.py``'s table-kernel bounds). The
-birth/death count is ``chip_smoke.py``'s 8a bound.
+write their outputs. The birth/death kernel reads what a packet's fate
+needs (a dead packet's state is drawn, not read) and writes the whole
+state and the dead mask.
 
 Operation counts are of the algorithm a step runs: a real 2-D FFT of n x
 n points is 2.5 n^2 log2(n^2) flops (half of 5 N log2 N), a block apply
@@ -61,7 +62,8 @@ def ray_attempt_bytes(held_rows: float, n: int, interp: str, table_dtype: str) -
 BD_LIVE_READS, BD_DEAD_READS, BD_WRITES = 7, 2, 7
 
 
-def birth_death_bytes(n: int, deaths: int) -> float:
+def birth_death_bytes(n: int, deaths: float) -> float:
+    """One birth/death step of ``n`` packets, ``deaths`` of them dead."""
     return 4 * (BD_LIVE_READS * (n - deaths) + BD_DEAD_READS * deaths + BD_WRITES * n) + n
 
 

@@ -26,7 +26,7 @@ import sys
 import time
 from pathlib import Path
 
-__all__ = ["main", "run_cell", "set_up", "attempts_of", "FORBIDDEN"]
+__all__ = ["main", "run_cell", "set_up", "attempts_of", "births_of", "FORBIDDEN"]
 
 # top-level module names the run may not hold (the JAX package is the
 # reference of the port, never measured)
@@ -81,6 +81,12 @@ def attempts_of(infos) -> tuple[int, int]:
     return acc, rej
 
 
+def births_of(sim) -> int:
+    """The program's running count of rebirths (0 without birth/death); a
+    read waits for the device."""
+    return 0 if sim.bd is None else int(sim.bd.births)
+
+
 def set_up(prog, seed: int):
     """The program from the seed's inputs through the traffic mix's spin-up
     and warm-up frames -> (the initial flow, a copy of the state after)."""
@@ -100,12 +106,16 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
     import torch
 
     from .cells import Program, copy_into, snapshot
-    from .check import Follower, packet_rows, gaps_start, gaps_window, judge, prec_of
+    from .check import (Follower, packet_rows, gaps_events, gaps_start, gaps_window, judge,
+                        observed_events, prec_of, reference_parts)
     from .spec import metrics_for, reader
 
     t_start = _process_start() if t_start is None else t_start
     cfg, tr = cell.config, cell.traffic
     e2e, per_layer = metrics_for(bench, cell.name)
+    # the reference's interpolant and events, found before any work: a
+    # part with no file stops the run here
+    reference_parts(cfg)
 
     # --- set-up ----------------------------------------------------------------
     prog = Program(cfg, tr, seed, device, log_fn=log_fn or (lambda line: None))
@@ -140,6 +150,7 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
     units = {m["name"]: m["unit"] for m in e2e + per_layer}
     n_frames = 0
     if not trace:
+        births0 = births_of(prog.sim)
         marks = [time.perf_counter()]
         setup_s = marks[0] - t_start
         frames(None, seconds, marks)
@@ -154,8 +165,8 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
                     for a in (0, window / 4, window / 2, 3 * window / 4)]
         print(f"window: {n_frames} frames, {steps} steps in {window!r} s; set-up {setup_s!r} s; "
               f"frame ms p5 {q[0]!r} median {statistics.median(frame_ms)!r} p95 {q[18]!r} "
-              f"max {max(frame_ms)!r}; steps/s by quarter {[round(v, 1) for v in quarters]}",
-              file=sys.stderr)
+              f"max {max(frame_ms)!r}; steps/s by quarter {[round(v, 1) for v in quarters]}; "
+              f"births {births_of(prog.sim) - births0}", file=sys.stderr)
     else:
         from juliaraytracingsw_tpu_torch.ops import ray_step
 
@@ -166,7 +177,7 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
         rows0 = _held_rows(packet_rows(prog.sim.packets), cfg)
         launches0 = (sum(ray_step.table_launches.values()),
                      sum(ray_step.table_attempt_launches.values()))
-        infos0 = len(prog.infos)
+        infos0, births0 = len(prog.infos), births_of(prog.sim)
         summary = profile_frames(lambda n: frames(n, None, [time.perf_counter()], True),
                                  tr["trace_frames"])
         n_frames = tr["trace_frames"]
@@ -180,7 +191,8 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
             counters=dict(table_launches=sum(ray_step.table_launches.values()) - launches0[0],
                           table_attempt_launches=sum(ray_step.table_attempt_launches.values())
                           - launches0[1],
-                          attempts_accepted=acc, attempts_rejected=rej))
+                          attempts_accepted=acc, attempts_rejected=rej,
+                          births=births_of(prog.sim) - births0))
         values = {}
         for m in per_layer:
             v = reader(m["name"])(summary, cell)
@@ -218,8 +230,13 @@ def run_cell(cell, bench: dict, seed: int, seconds: float, trace: bool, device: 
     ref = Follower(cfg, tr, device, dt, nu, prec_of(cfg))
     gaps = gaps_start(start_snap.sol, ref.setup(sol0, setup_steps), sol0)
     snap_in, snap_out = snaps["in"], snaps["out"]
-    gaps.update(gaps_window(snap_out.sol, packet_rows(snap_out.packets), ref.frames(snap_in, 2),
-                            snap_in.sol, cfg["L"] / cfg["nx"], cell.coupled, attempts))
+    ref_w = ref.frames(snap_in, 2)
+    out_st = packet_rows(snap_out.packets)
+    gaps.update(gaps_window(snap_out.sol, out_st, ref_w, snap_in.sol, cfg["L"] / cfg["nx"],
+                            cell.coupled, attempts))
+    gaps.update(gaps_events(ref, ref_w, observed_events(ref, snap_out), out_st))
+    if ref.marked:
+        print(f"left out as ambiguous, by event: {ref.marked}", file=sys.stderr)
     limits = cell.limits
     correct = judge(gaps, limits)
     device_info = dict(platform="gpu" if is_cuda else "cpu",

@@ -69,3 +69,30 @@ def test_summarize_unions_and_labels_gaps():
     assert gaps["(no host operation)"] == pytest.approx(35e-6)
     assert union_seconds([])[0] == 0.0
     assert label_gaps([], []) == {}
+
+
+def test_the_birth_death_roofline_reads_its_kernel():
+    """Launches x the function's bytes at the deaths a launch (the births
+    counter over the launches) at 3.35 TB/s, over the kernel's device
+    time; nothing without the kernel."""
+    kernel = "void (anonymous namespace)::birth_death_kernel<float>(...)"
+    s = _summary(n_packets=262144, device_ops={kernel: [20, 0.0003]},
+                 counters=dict(births=600))
+    nbytes = 4 * (7 * (262144 - 30) + 2 * 30 + 7 * 262144) + 262144
+    share = read("birth_death_roofline", s)
+    assert share == pytest.approx(100 * 20 * nbytes / 3.35e12 / 0.0003)
+    assert 0 < share < 100
+    assert read("birth_death_roofline", _summary(n_packets=262144)) is None
+
+
+def test_step_mfu_takes_the_configurations_ray_work():
+    """``work.ray_flops_per_packet``, where a configuration states it, is
+    the work of one attempt a packet; else the method's count."""
+    cell = spec.load_cell("rsw512_rk4")
+    s = _summary()
+    base = spec.reader("step_mfu")(s, cell)
+    per = roofline.ray_flops_per_packet("rk4")
+    cell.config["work"] = dict(cell.config["work"], ray_flops_per_packet=2 * per)
+    more = spec.reader("step_mfu")(s, cell)
+    extra = 20 * (1 << 20) * per
+    assert more - base == pytest.approx(100 * extra / (0.1 * roofline.FP32_FLOPS_PER_S))

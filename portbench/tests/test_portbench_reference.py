@@ -17,6 +17,7 @@ from portbench.reference.rays import Rays
 
 REF_DIR = Path(reference.__file__).parent
 N = 32
+BILINEAR = reference.find("interp", "bilinear")
 
 
 def _program(cfg):
@@ -82,7 +83,7 @@ def test_rk4_substep_agrees():
     h = 1e-2
     out = table_substep(T, st, torch.tensor([0.0, h]), rp=rp, interp="bilinear", da=1.0,
                         ny=N, nx=N)
-    rays = Rays(grid(N, 2 * math.pi, "cpu"), 3.0, 1.0, 300.0, 5.0, reference.NOMINAL)
+    rays = Rays(grid(N, 2 * math.pi, "cpu"), 3.0, 1.0, reference.NOMINAL, BILINEAR)
     ref = rays.rk4(st, rays.tables(fo), rays.tables(fn), torch.tensor(0.0), torch.tensor(h))
     torch.testing.assert_close(out, ref[:4], rtol=1e-5, atol=1e-5)
     assert float((ref[:4] - st[:4]).abs().max()) > 1e-3
@@ -95,7 +96,7 @@ def test_dp54_attempt_agrees():
     h = 2e-2
     out = table_attempt(T, st, torch.tensor([0.0, 1.0, h, 1e-3, 1e-6]), rp=rp,
                         interp="bilinear", ny=N, nx=N)
-    rays = Rays(grid(N, 2 * math.pi, "cpu"), 3.0, 1.0, 300.0, 5.0, reference.NOMINAL)
+    rays = Rays(grid(N, 2 * math.pi, "cpu"), 3.0, 1.0, reference.NOMINAL, BILINEAR)
     ref, esum = rays.attempt(st, rays.tables(fo), rays.tables(fn), 0.0, 1.0,
                              torch.tensor(h), 1e-3, 1e-6)
     torch.testing.assert_close(out[:4], ref[:4], rtol=1e-5, atol=1e-5)
@@ -104,7 +105,7 @@ def test_dp54_attempt_agrees():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for path in REF_DIR.glob("*.py"):
+    for path in REF_DIR.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
             names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                      else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])

@@ -73,7 +73,9 @@ def _fault(kind):
 @pytest.mark.parametrize("name,kind", [("rsw512_rk4", "unchanged"), ("rsw512_rk4", "half"),
                                        ("rsw512_rk4", "altered"),
                                        ("twolayer2048_flow", "unchanged"),
-                                       ("rsw512_adaptive", "unchanged")])
+                                       ("rsw512_adaptive", "unchanged"),
+                                       ("rsw512_bd", "unchanged"), ("rsw512_bd", "half"),
+                                       ("rsw512_bd", "altered")])
 def test_a_broken_run_is_not_correct(name, kind, bench, tiny, monkeypatch):
     where, attr, broken = _fault(kind)
     if isinstance(where, dict):
