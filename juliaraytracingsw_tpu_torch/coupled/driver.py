@@ -118,7 +118,7 @@ class SimState(NamedTuple):
     clock: Clock
     stepper_state: tuple | NamedTuple
     packets: Packets
-    fields: torch.Tensor   # (5, ny, nx) current interpolation fields
+    fields: torch.Tensor   # (5, ny, nx) interpolation fields; (20, ny, nx) bicubic
     bd: BirthDeathState | None = None
 
 
