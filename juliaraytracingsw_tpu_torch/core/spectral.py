@@ -39,9 +39,12 @@ def _doubling_weights(grid) -> torch.Tensor:
     """Conjugate-symmetry weights of rfft storage: the kr=0 column once,
     every kr>0 column twice, an even-nx Nyquist column once."""
     w = torch.full((grid.nkr,), 2.0, dtype=torch.float32, device=grid.device)
-    w[0] = 1.0
+    # ``fill_`` passes its value to the kernel, where ``w[0] = 1.0`` copies
+    # it from a host tensor, which a CUDA graph (the driver's frame tail,
+    # whose diagnostics sum by Parseval) cannot hold
+    w[0].fill_(1.0)
     if grid.nx % 2 == 0:
-        w[-1] = 1.0
+        w[-1].fill_(1.0)
     return w[None, :]
 
 

@@ -42,24 +42,32 @@ gathers' (``rays/interp.taps_gathers``) count the host's launches, a
 capture's included; a replay runs the kernels it holds with
 no host call, and counts only in ``graph_frames["replayed"]``.
 
-The host waits on the device once per frame, in the NaN guard, and again
-where a frame's outputs go to the host: one copy of the packet
-telemetry, one of each snapshot, one of each diagnostic, and the log
-line's two scalars. Every such wait is counted by site in
+After each coupled frame the host reads the frame's tail
+(``frame_tail``): the NaN guard's flag, the clock, the diagnostics the
+frame records and the scalar the log line needs, computed on the device
+into one buffer of their bytes and copied to the host with one wait
+(``driver.frame_tail``). After a graphed frame the tail is a small CUDA
+graph of its own (``_TailGraph``), one for each set of parts the
+frames' cadence asks for, replayed behind the frame's graph into a pinned
+buffer; after an eager frame it runs eagerly. ``observability.frame_tails``
+counts both. The host waits again after a spin-up chunk, in its NaN
+guard, and where a frame's outputs go to the host: one copy of the packet
+telemetry and one of each snapshot. Every such wait is counted by site in
 ``utils/observability.waits``. Under a running ``torch.profiler`` each
 stage is a span (``utils/observability.span``): ``frame.coupled``/
 ``frame.flow`` around a frame (around its replay, for a graph),
 ``flow.step``, ``rays.fields``, ``rays.table``, ``rays.step`` or
 ``rays.adaptive`` (on the taps path a ``rays.taps`` in it a stage),
 ``rays.reset``, ``rays.birth_death`` inside an eager frame, and
-``driver.nan_guard``, ``driver.diagnostics``, ``driver.outputs``,
-``driver.live``, ``driver.log`` after it, each wait a span
-``wait.<site>``. Everything in a frame is differentiable but the
+``driver.frame_tail`` (``driver.nan_guard`` after a spin-up chunk),
+``driver.outputs``, ``driver.live``, ``driver.log`` after it, each wait a
+span ``wait.<site>``. Everything in a frame is differentiable but the
 adaptive integrator's 'while' loop and its fused attempt, which are
 forward only, as in the reference.
 """
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Callable, NamedTuple
@@ -79,12 +87,12 @@ from ..rays.raytrace import (RayParams, _use_patch, build_pair, check_ray_params
 from ..rays.prng import prng_key
 from ..rays.resample import (BirthDeathState, init_birth_death, k_cutoff_reset,
                              weibull_birth_death)
-from ..utils.observability import graph_frames, span, wait
+from ..utils.observability import frame_tails, graph_frames, span, wait
 
 __all__ = [
     "derive_dt", "derive_nu", "SimState", "make_coupled_frame",
     "make_flow_frame", "CoupledDriver", "RAY_METHODS", "HOST_WAIT_METHODS",
-    "eager_reason",
+    "eager_reason", "frame_tail", "unpack_tail",
 ]
 
 # fixed-step integrators, then the adaptive ones
@@ -340,13 +348,15 @@ class _FrameGraph:
     in place) into the buffers, replays, and returns the state over the
     buffers; ``step_infos`` copies of the replay's infos. The kernels'
     launch counters count the capture's launches, not the replays': a
-    replay runs them with no host call."""
+    replay runs them with no host call. ``tails`` holds the frame's tail
+    graphs over its buffers, by the parts they read (``_TailGraph``)."""
 
     def __init__(self, frame: Callable, kind: str, flow_steps: int):
         self.frame, self.kind, self.flow_steps = frame, kind, flow_steps
         self.static: list = []
         self.graph = None
         self.info: tuple | None = None
+        self.tails: dict = {}
 
     def buffers(self, sim: SimState) -> SimState:
         self.static = [t.clone() for t in _carried(sim, self.kind)]
@@ -391,6 +401,65 @@ class _FrameGraph:
         times, counts = (b.clone() for b in self.info)
         return [dict(t_reached=t[0], h_final=t[1], n_accepted=c[0], n_rejected=c[1])
                 for t, c in zip(times, counts)]
+
+
+def frame_tail(sim: SimState, model: Model, diagnostics: dict, log: bool
+               ) -> tuple[torch.Tensor, tuple]:
+    """What the host reads after a coupled frame, computed on the state's
+    device -> (the values' bytes in one uint8 tensor, their layout): the
+    NaN guard's ``isfinite(sol.abs().max())`` as ``finite``, ``clock.t``
+    as ``t``, each of ``diagnostics`` (name -> ``fn(sol, grid, params)``)
+    as ``diag.<name>`` and, with ``log``, the log line's
+    ``fields[:2].abs().max()`` as ``umax``. Each value is the same op on
+    the same state as when it was read on its own, and its bytes are
+    copied unconverted, so ``unpack_tail`` gives it back bit for bit;
+    the layout is each value's (name, numpy dtype, shape), in order."""
+    parts = {"finite": torch.isfinite(sim.sol.abs().max()), "t": sim.clock.t}
+    for name, fn in diagnostics.items():
+        parts["diag." + name] = fn(sim.sol, model.grid, model.params).detach()
+    if log:
+        parts["umax"] = sim.fields[:2].abs().max()
+    layout = tuple((name, torch.empty(0, dtype=p.dtype).numpy().dtype, tuple(p.shape))
+                   for name, p in parts.items())
+    return torch.cat([p.reshape(-1).view(torch.uint8) for p in parts.values()]), layout
+
+
+def unpack_tail(host: np.ndarray, layout: tuple) -> dict:
+    """``frame_tail``'s bytes, on the host -> {name: a numpy array of the
+    value's dtype and shape, owning its memory}."""
+    values, at = {}, 0
+    for name, dtype, shape in layout:
+        n = dtype.itemsize * math.prod(shape)
+        values[name] = host[at:at + n].view(dtype).reshape(shape).copy()
+        at += n
+    return values
+
+
+class _TailGraph:
+    """A frame's tail (``tail(sim) -> (bytes, layout)``, ``frame_tail``
+    with its parts chosen) captured as a CUDA graph over a frame graph's
+    buffers, after one eager run that loads its kernels. ``replay`` runs
+    it behind the frame's replay and queues the copy of its bytes into a
+    pinned host buffer, with no wait; ``synchronize`` is the wait."""
+
+    def __init__(self, tail: Callable, sim: SimState):
+        with torch.no_grad():
+            tail(sim)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(sim.sol.device), torch.no_grad(), \
+                torch.cuda.graph(self.graph):
+            self.packed, self.layout = tail(sim)
+        self.host = torch.empty(self.packed.shape, dtype=torch.uint8,
+                                pin_memory=self.packed.is_cuda)
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        self.host.copy_(self.packed, non_blocking=True)
+        return self.host
+
+    def synchronize(self) -> None:
+        if self.packed.is_cuda:
+            torch.cuda.current_stream(self.packed.device).synchronize()
 
 
 @dataclass
@@ -543,7 +612,7 @@ class CoupledDriver:
             k = min(chunk, nsteps - done)
             self._advance("flow", k)
             done += k
-            self._check_nan("spinup")
+            self._check_nan()
         return self.sim
 
     def run(self, n_frames: int, flow_steps_per_frame: int, snapshot_every: int = 1):
@@ -552,9 +621,19 @@ class CoupledDriver:
         ``snapshot_every`` frames."""
         self.ray_infos.clear()
         for i in range(n_frames):
-            self._advance("coupled", flow_steps_per_frame)
-            self._check_nan(f"frame {i}")
-            self._record_diagnostics(i)
+            graph = self._advance("coupled", flow_steps_per_frame)
+            diag = bool(self.diagnostics) and i % self.diag_every_frames == 0
+            log = i % self.log_every_frames == 0
+            tail = self._frame_tail(graph, diag, log)
+            t = float(tail["t"])
+            if not tail["finite"]:
+                self.flush()
+                raise FloatingPointError(
+                    f"solution is NaN/Inf at frame {i} (t={t:.3f}) — aborting")
+            if diag:
+                self.diag_times.append(t)
+                for name in self.diagnostics:
+                    self.diag_series[name].append(tail["diag." + name])
             self._write_packet_frame()
             if self.live is not None:
                 with span("driver.live"):
@@ -562,15 +641,15 @@ class CoupledDriver:
                                      self.diag_series)
             if self.snapshot_writer is not None and i % snapshot_every == 0:
                 self._write_snapshot()
-            if i % self.log_every_frames == 0:
-                self._log(i)
+            if log:
+                self._log(t, float(tail["umax"]))
         self.flush()
         return self.sim
 
-    def _advance(self, kind: str, flow_steps: int):
+    def _advance(self, kind: str, flow_steps: int) -> _FrameGraph | None:
         """One frame of ``kind`` from ``self.sim``: eager, or the frame's
         CUDA graph, captured at its first call that may run as one
-        (``eager_reason``)."""
+        (``eager_reason``) -> the graph it replayed, or None."""
         key = (kind, flow_steps)
         frame = self._get_frame(kind, flow_steps)
         calls = self._calls.get(key, 0)
@@ -586,7 +665,7 @@ class CoupledDriver:
         if reason is not None:
             graph_frames["eager." + reason] += 1
             self.sim = frame(self.sim)
-            return
+            return None
         graph = self._graphs.get(key)
         if graph is None:
             graph = _FrameGraph(frame, kind, flow_steps)
@@ -597,9 +676,36 @@ class CoupledDriver:
             self._graphs[key] = graph
         self.sim = graph.replay(self.sim)
         self.ray_infos.extend(graph.step_infos())
+        return graph
+
+    def _frame_tail(self, graph: _FrameGraph | None, diag: bool, log: bool) -> dict:
+        """The frame's tail (``frame_tail``, with the diagnostics if
+        ``diag`` and the log's scalar if ``log``) on the host, with one
+        wait: behind a replay of ``graph`` the tail graph over its buffers
+        for these parts (captured at its first use), after an eager frame
+        (``graph`` None) the tail run eagerly."""
+        diagnostics = self.diagnostics if diag else {}
+        with span("driver.frame_tail"):
+            if graph is None:
+                frame_tails["eager"] += 1
+                with torch.no_grad():
+                    packed, layout = frame_tail(self.sim, self.model, diagnostics, log)
+                with wait("driver.frame_tail"):
+                    host = packed.cpu()
+            else:
+                frame_tails["graphed"] += 1
+                tail = graph.tails.get((diag, log))
+                if tail is None:
+                    tail = graph.tails[(diag, log)] = _TailGraph(
+                        lambda sim: frame_tail(sim, self.model, diagnostics, log), self.sim)
+                host, layout = tail.replay(), tail.layout
+                with wait("driver.frame_tail"):
+                    tail.synchronize()
+            return unpack_tail(host.numpy(), layout)
 
     # --- helpers -------------------------------------------------------------
-    def _check_nan(self, where: str):
+    def _check_nan(self):
+        """The spin-up chunk's NaN guard."""
         with span("driver.nan_guard"):
             finite = torch.isfinite(self.sim.sol.abs().max())
             with wait("driver.nan_guard"):
@@ -609,19 +715,7 @@ class CoupledDriver:
                 with wait("driver.nan_guard"):
                     t = float(self.sim.clock.t)
                 raise FloatingPointError(
-                    f"solution is NaN/Inf at {where} (t={t:.3f}) — aborting")
-
-    def _record_diagnostics(self, i: int):
-        if not self.diagnostics or i % self.diag_every_frames:
-            return
-        with span("driver.diagnostics"):
-            with wait("driver.diagnostics"):
-                self.diag_times.append(float(self.sim.clock.t))
-            for name, fn in self.diagnostics.items():
-                value = fn(self.sim.sol, self.model.grid, self.model.params).detach()
-                with wait("driver.diagnostics"):
-                    value = value.cpu()
-                self.diag_series[name].append(value.numpy())
+                    f"solution is NaN/Inf at spinup (t={t:.3f}) — aborting")
 
     def _write_packet_frame(self):
         """One frame of packet telemetry, (N, 2) float32 arrays x, k, u and
@@ -668,17 +762,11 @@ class CoupledDriver:
             self.snapshot_writer.write_frame(step, sol=sol)
             self.snapshot_writer.write(f"snapshots/t/{step}", t)
 
-    def _log(self, i: int):
-        sim = self.sim
+    def _log(self, t: float, umax: float):
         with span("driver.log"):
-            umax = sim.fields[:2].abs().max()
-            with wait("driver.log"):
-                umax = float(umax)
-            with wait("driver.log"):
-                t = float(sim.clock.t)
             cfl = self.dt * umax / min(self.model.grid.dx, self.model.grid.dy)
             self.log_fn(
-                f"step: {sim.clock.step:06d}, t: {t:.2f}, "
+                f"step: {self.sim.clock.step:06d}, t: {t:.2f}, "
                 f"cfl: {cfl:.2e}, wall: {(time.time() - self._start_wall) / 60:.2f} min"
             )
 

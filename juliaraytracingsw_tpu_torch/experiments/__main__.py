@@ -374,9 +374,13 @@ def _setup_multilayer(args, grid, nu, rng, f, Cg) -> Case:
     rp = _ray_params(args, grid, f, Cg)
     packets = lattice_packets(args.sqrt_npackets, grid.Lx, grid.Ly, k0=_k0(args, f, Cg),
                               k_ring=args.k_ring, device=grid.device)
+    # the model's S^-1 table, not one inverted on the host at each call:
+    # the driver's frame tail runs them inside a CUDA graph
     diags = {
-        "kinetic_energy": lambda s, g, p: torch.stack(mlqg.kinetic_energy(s, g, p)),
-        "potential_energy": lambda s, g, p: torch.stack(mlqg.potential_energy(s, g, p)),
+        "kinetic_energy": lambda s, g, p: torch.stack(
+            mlqg.kinetic_energy(s, g, p, psih=psi_from_q(s))),
+        "potential_energy": lambda s, g, p: torch.stack(
+            mlqg.potential_energy(s, g, p, psih=psi_from_q(s))),
     }
     return Case(model, psih_fn, rp, sol0, packets, f, Cg, diags, f"{n}Lqg")
 

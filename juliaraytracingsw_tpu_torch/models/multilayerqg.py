@@ -165,16 +165,20 @@ def pv_from_streamfunction(psih, grid, params: MultiLayerParams):
     return -grid.Krsq * psih + torch.einsum("ab,b...->a...", A.to(psih.dtype), psih)
 
 
-def kinetic_energy(qh, grid, params: MultiLayerParams):
-    """Per-layer depth-weighted KE (GeophysicalFlows' convention)."""
-    psih = streamfunction_from_pv(qh, grid, params)
+def kinetic_energy(qh, grid, params: MultiLayerParams, psih=None):
+    """Per-layer depth-weighted KE (GeophysicalFlows' convention); ``psih``
+    is ``qh``'s streamfunction where the caller has it."""
+    if psih is None:
+        psih = streamfunction_from_pv(qh, grid, params)
     ke = parseval_sum(grid.Krsq * psih.abs() ** 2, grid) / (grid.Lx * grid.Ly)
     return tuple(0.5 * params.delta[j] * ke[j] for j in range(params.nlayers))
 
 
-def potential_energy(qh, grid, params: MultiLayerParams):
-    """Per-interface APE F/2 <|psi_j - psi_{j+1}|^2>."""
-    psih = streamfunction_from_pv(qh, grid, params)
+def potential_energy(qh, grid, params: MultiLayerParams, psih=None):
+    """Per-interface APE F/2 <|psi_j - psi_{j+1}|^2>; ``psih`` as in
+    ``kinetic_energy``."""
+    if psih is None:
+        psih = streamfunction_from_pv(qh, grid, params)
     return tuple(
         0.5 * params.Fcoup[j]
         * parseval_sum((psih[j] - psih[j + 1]).abs() ** 2, grid)

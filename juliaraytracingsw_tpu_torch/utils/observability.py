@@ -15,6 +15,10 @@
   ``replayed`` (frames run as one graph replay, the capturing call's
   included) and ``eager.<reason>`` (frames run op by op, by the first
   reason in ``GRAPH_REASONS`` that holds);
+- ``frame_tails``: how the coupled driver read each frame's tail (its
+  NaN guard, clock, diagnostics and log scalar in one buffer, one wait),
+  counted whether or not a profiler runs: ``graphed`` (a tail graph
+  replayed behind the frame's graph) and ``eager``;
 - ``profile_trace``: context manager around ``torch.profiler`` (the CPU,
   and the card where there is one) writing a trace directory that
   TensorBoard's profiler plugin or Perfetto read, stages and waits
@@ -34,14 +38,14 @@ import torch
 import torch.autograd.profiler as _autograd_profiler
 
 __all__ = ["span", "wait", "waits", "reset_waits", "WAIT_SITES", "GRAPH_REASONS",
-           "graph_frames", "reset_graph_frames", "profile_trace", "debug_flags",
-           "checked_step", "NonFiniteState"]
+           "graph_frames", "reset_graph_frames", "frame_tails", "reset_frame_tails",
+           "profile_trace", "debug_flags", "checked_step", "NonFiniteState"]
 
 _NULL_SPAN = contextlib.nullcontext()
 
 # the sites where the coupled driver's frames block on the device
-WAIT_SITES = ("driver.nan_guard", "driver.log", "driver.outputs", "driver.diagnostics",
-              "rays.adaptive", "rays.midpoint")
+WAIT_SITES = ("driver.frame_tail", "driver.nan_guard", "driver.outputs", "rays.adaptive",
+              "rays.midpoint")
 _WAIT_SPANS = {site: "wait." + site for site in WAIT_SITES}
 # host waits on the device by site, counted by ``wait``
 waits = {site: 0 for site in WAIT_SITES}
@@ -66,6 +70,15 @@ def reset_graph_frames() -> None:
         graph_frames[key] = 0
 
 
+# the coupled driver's frame tails by how they ran, counted by the driver
+frame_tails = {"graphed": 0, "eager": 0}
+
+
+def reset_frame_tails() -> None:
+    for key in frame_tails:
+        frame_tails[key] = 0
+
+
 def span(name: str):
     """``with span("flow.step"): ...``: a ``record_function`` range while a
     profiler records, else a shared null context; the test is one read of
@@ -78,7 +91,7 @@ def span(name: str):
 def wait(site: str):
     """Count one host wait on the device at ``site`` (one of
     ``WAIT_SITES``) and return the span ``wait.<site>`` to hold around the
-    blocking call: ``with wait("driver.log"): t = float(clock.t)``."""
+    blocking call: ``with wait("driver.outputs"): t = float(clock.t)``."""
     waits[site] += 1
     return span(_WAIT_SPANS[site])
 

@@ -5,13 +5,18 @@ On the CPU: the rule that decides whether a frame may replay as a graph
 frame's outputs into its buffers, the buffers cloned from the state, a
 caller's state never written, and the whole mechanism against eager
 frames with the CUDA graph emulated by an op log (``_OpLogGraph``: every op the capture runs is recorded, its
-writes undone, and a replay runs the ops again into the same tensors).
+writes undone, and a replay runs the ops again into the same tensors),
+the frames' tail graphs against eager tails for every command line at a
+cadence of diagnostics and log lines, and the NaN guard after a graphed
+and an eager frame.
 
 On the card (marked ``cuda``, skipped without one): graphed frames held
 bit-equal to eager frames over at least three replays at 64^2 and 4,096
 packets, for RK4 with the k-cutoff reset, RK4 with birth/death, DP5, the
 two-layer RK4 frame on the taps path and the flow frame of each
-command-line setup; the adaptive DP5(4) frame, its 'while' loop a WHILE
+command-line setup; the tails of RK4 and three-layer frames (the NaN
+guard, diagnostics and log scalars, one wait a frame) bit-equal to eager
+tails; the adaptive DP5(4) frame, its 'while' loop a WHILE
 node of the graph, at 128^2 and 65,536 packets, its steps' infos included;
 a restore into a graphed driver; a caller's initial
 state left untouched; the table kernel and the pair table's run once a
@@ -165,7 +170,10 @@ def test_buffers_clone_the_state():
 
 class _OpLog(TorchDispatchMode):
     """Runs and records every op; undoes each write at the end, as a
-    capture runs nothing."""
+    capture runs nothing. Refuses a tensor made from host data
+    (``lift_fresh``, as ``t[i] = 1.0`` makes) and a read of a value by the
+    host (``float(t)``): on the card a copy from the host or a wait, which
+    a CUDA graph cannot hold."""
 
     def __init__(self, graph):
         super().__init__()
@@ -173,6 +181,8 @@ class _OpLog(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in (torch.ops.aten.lift_fresh.default, torch.ops.aten._local_scalar_dense.default):
+            raise RuntimeError(f"{func} during a capture")
         for arg, value in zip(func._schema.arguments, args):
             if arg.alias_info is not None and arg.alias_info.is_write:
                 self.saved.setdefault(id(value), (value, value.clone()))
@@ -252,6 +262,78 @@ def test_caller_state_put_in_place_is_never_written(emulated_graphs):
     drv.run(1, 1)
     _assert_equal(mine, kept)
     _assert_equal(drv.sim, drv._get_frame("coupled", 1)(kept))
+
+
+def _tails_run(cmd: str, platform: str, nx: int, sqrtp: int, extra: tuple, frames: int,
+               k: int, eager: bool, monkeypatch, **changes):
+    """A driver's spin-up, then ``frames`` frames of ``k`` steps in one
+    ``run``; with ``eager`` every frame, and so every tail, runs eager ->
+    (driver, log lines without their ``wall:``, waits, frame tails)."""
+    logs = []
+    drv, _ = _driver(cmd, platform, nx, sqrtp, *extra, log_fn=logs.append, **changes)
+    drv.spinup(4, chunk=4)
+    obs.reset_waits()
+    obs.reset_frame_tails()
+    with monkeypatch.context() as m:
+        if eager:
+            m.setattr(drv_mod, "eager_reason", lambda *a: "first_call")
+        drv.run(frames, k)
+    return drv, [line.split(", wall:")[0] for line in logs], dict(obs.waits), dict(obs.frame_tails)
+
+
+def _assert_tails_equal(drv, ref, logs, ref_logs):
+    """The diagnostics' times and series (dtype, shape and bits) and the
+    log lines of two drivers are the same."""
+    assert drv.diag_times == ref.diag_times
+    assert drv.diag_series.keys() == ref.diag_series.keys()
+    for name, series in drv.diag_series.items():
+        assert len(series) == len(ref.diag_series[name])
+        for a, b in zip(series, ref.diag_series[name]):
+            assert (a.dtype, a.shape, a.tobytes()) == (b.dtype, b.shape, b.tobytes()), name
+    assert logs == ref_logs
+
+
+@pytest.mark.parametrize("cmd", sorted(cli.SETUPS))
+def test_emulated_graph_tails_match_eager(emulated_graphs, monkeypatch, cmd):
+    """Every command line's coupled frames, recorded every 2nd frame and
+    logged every 3rd: behind graphed frames the tail graphs give the
+    diagnostics and log lines of eager frames, on the same frames, with one
+    wait a frame, one tail graph for each set of parts the cadence asks for."""
+    cadence = dict(diag_every_frames=2, log_every_frames=3)
+    ref, ref_logs, ref_waits, ref_tails = _tails_run(cmd, "cpu", 32, 8, (), 7, 2, True,
+                                                     monkeypatch, **cadence)
+    drv, logs, waits, tails = _tails_run(cmd, "cpu", 32, 8, (), 7, 2, False, monkeypatch,
+                                         **cadence)
+    _assert_tails_equal(drv, ref, logs, ref_logs)
+    assert np.allclose(drv.diag_times, [drv.dt * s for s in (6, 10, 14, 18)], rtol=1e-5)
+    assert [line.split(",")[0] for line in logs] == [f"step: {s:06d}" for s in (6, 12, 18)]
+    assert ref_waits == waits == {**dict.fromkeys(obs.WAIT_SITES, 0), "driver.frame_tail": 7}
+    assert ref_tails == {"graphed": 0, "eager": 7}
+    # the coupled frame's first call runs eager, and its tail with it
+    assert tails == {"graphed": 6, "eager": 1}
+    graph = drv._graphs[("coupled", 2)]
+    assert set(graph.tails) == {(False, False), (True, False), (False, True), (True, True)}
+
+
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graphed"])
+def test_nan_guard_stops_the_run_after_the_frame(emulated_graphs, monkeypatch, graphed):
+    """A NaN put into the state stops ``run`` after the frame that read it,
+    with the frame's index and time, and records and logs nothing of it."""
+    drv, _ = _driver("rsw", "cpu", 32, 8, "--ray-method", "rk4")
+    drv.spinup(4, chunk=4)
+    drv.run(2, K)
+    n_diag = len(drv.diag_times)
+    sim = drv.sim
+    sim.sol[0, 1, 1] = float("nan")
+    obs.reset_frame_tails()
+    with monkeypatch.context() as m:
+        if not graphed:
+            m.setattr(drv_mod, "eager_reason", lambda *a: "first_call")
+        with pytest.raises(FloatingPointError, match=r"^solution is NaN/Inf at frame 0 "
+                           rf"\(t={float(drv.sim.clock.t) + K * drv.dt:.3f}\) — aborting$"):
+            drv.run(3, K)
+    assert obs.frame_tails == {"graphed": int(graphed), "eager": int(not graphed)}
+    assert len(drv.diag_times) == n_diag
 
 
 # --- on the card ---------------------------------------------------------------
@@ -385,6 +467,30 @@ def test_flow_graph_frames_match_eager(cuda_device, cmd):
     assert obs.graph_frames["captured"] == 1
     assert obs.graph_frames["replayed"] == FRAMES
     assert obs.graph_frames["eager.bootstrap"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cmd,extra", [("rsw", ("--ray-method", "rk4")),
+                                       ("twolayer", ("--nlayers", "3"))],
+                         ids=["rsw_rk4", "three_layers"])
+def test_graphed_tails_match_eager(cuda_device, monkeypatch, cmd, extra):
+    """One eager frame, then four graphed ones, each tail read in one wait:
+    the diagnostics, their times and the log lines (t, cfl) bit-equal to an
+    eager-only driver's; the n-layer diagnostics read the model's table, so
+    a graph holds them too."""
+    ref, ref_logs, _, _ = _tails_run(cmd, cuda_device, NX, SQRTP, extra, 5, K, True,
+                                     monkeypatch)
+    logs = []
+    drv, _ = _driver(cmd, cuda_device, NX, SQRTP, *extra, log_fn=logs.append)
+    drv.spinup(4, chunk=4)
+    obs.reset_frame_tails()
+    for _ in range(5):
+        waits = dict(obs.waits)
+        drv.run(1, K)
+        assert obs.waits == {**waits, "driver.frame_tail": waits["driver.frame_tail"] + 1}
+    assert obs.frame_tails == {"graphed": 4, "eager": 1}
+    assert set(drv._graphs[("coupled", K)].tails) == {(True, True)}
+    _assert_tails_equal(drv, ref, [line.split(", wall:")[0] for line in logs], ref_logs)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ line's RSW case at 32^2 with 256 packets on the patch path:
   frame and a flow-only chunk emit their stage spans with the nesting the
   driver documents, and each host wait its ``wait.<site>`` span;
 - ``observability.waits`` counts every blocking call once, by site, with
-  or without a profiler;
+  or without a profiler: a coupled frame's guard, diagnostics and log
+  scalars are one wait, at ``driver.frame_tail``;
 - a frame's state is bit-equal with and without a profiler running.
 """
 import numpy as np
@@ -86,9 +87,9 @@ def test_span_without_a_profiler_is_one_null_object():
         x = torch.ones(3) * 2
     assert float(x.sum()) == 6.0
     before = dict(obs.waits)
-    with obs.wait("driver.log") as w:
+    with obs.wait("driver.frame_tail") as w:
         pass
-    assert w is None and obs.waits["driver.log"] == before["driver.log"] + 1
+    assert w is None and obs.waits["driver.frame_tail"] == before["driver.frame_tail"] + 1
     obs.reset_waits()
     assert set(obs.waits) == set(obs.WAIT_SITES) and not any(obs.waits.values())
 
@@ -116,9 +117,9 @@ def test_rk4_frame_spans_nest():
         ("rays.table", top): 5,             # one pair table a step
         ("flow.step", top): 5, ("rays.fields", top): 5, ("rays.step", top): 5,
         ("rays.reset", top): 5,
-        ("driver.nan_guard", None): 1, ("wait.driver.nan_guard", "driver.nan_guard"): 1,
-        ("driver.diagnostics", None): 1, ("wait.driver.diagnostics", "driver.diagnostics"): 3,
-        ("driver.log", None): 1, ("wait.driver.log", "driver.log"): 2,
+        # the guard, the diagnostics and the log's scalars: one tail, one wait
+        ("driver.frame_tail", None): 1, ("wait.driver.frame_tail", "driver.frame_tail"): 1,
+        ("driver.log", None): 1,
     }
 
 
@@ -152,10 +153,9 @@ def test_waits_of_an_rk4_frame_and_a_spinup_chunk(profiled):
         _profiled(lambda: drv.run(1, 5))
     else:
         drv.run(1, 5)
-    # the NaN guard; the log's umax and clock; the diagnostics' clock and
-    # two energies
-    assert obs.waits == {**dict.fromkeys(obs.WAIT_SITES, 0), "driver.nan_guard": 1,
-                         "driver.log": 2, "driver.diagnostics": 3}
+    # the frame's tail: the NaN guard, the clock, the two energies and the
+    # log's umax, read back together
+    assert obs.waits == {**dict.fromkeys(obs.WAIT_SITES, 0), "driver.frame_tail": 1}
     obs.reset_waits()
     drv.spinup(50, chunk=25)
     assert obs.waits == {**dict.fromkeys(obs.WAIT_SITES, 0), "driver.nan_guard": 2}
@@ -168,7 +168,7 @@ def test_waits_of_an_adaptive_step_are_one_and_its_slots():
     slots = sum(int(i["n_accepted"]) + int(i["n_rejected"]) for i in drv.ray_infos)
     assert slots >= 10
     assert obs.waits["rays.adaptive"] == 10 + slots
-    assert obs.waits["driver.nan_guard"] == 2 and obs.waits["driver.log"] == 4
+    assert obs.waits["driver.frame_tail"] == 2 and obs.waits["driver.nan_guard"] == 0
 
 
 def test_waits_of_the_outputs_and_the_midpoint_solve():
